@@ -1,0 +1,12 @@
+from image_classification_tpu_torch.data.loader import DataLoader
+from image_classification_tpu_torch.data.manifest import Manifest
+from image_classification_tpu_torch.data.sampling import SequentialSampler
+from image_classification_tpu_torch.data.source import ArraySource, load_decode_cache
+
+__all__ = [
+    "ArraySource",
+    "DataLoader",
+    "Manifest",
+    "SequentialSampler",
+    "load_decode_cache",
+]

@@ -1,0 +1,188 @@
+"""ConvNeXt family, channels-last, inference forward.
+
+Port of ``image_classification_tpu/models/convnext.py``: patchify stem (4x4/4
+conv + LN), four stages of blocks (7x7 depthwise conv -> LN -> 4x MLP with
+exact GELU -> layer scale -> residual), LN + 2x2/2 downsample between stages,
+and a global-average-pool -> LN -> Linear head. Parameter names are timm's
+(``stem.0``, ``stages.{i}.downsample.{0,1}``,
+``stages.{i}.blocks.{j}.{conv_dw,norm,mlp.fc1,mlp.fc2,gamma}``,
+``head.{norm,fc}``) in torch layouts, so a timm state dict loads with
+``strict=True``.
+
+In each block the depthwise conv runs ``ops.depthwise_conv7x7``; the tail runs
+the fused ``ops.block_mlp`` where ``block_mlp_available(C)`` (stages 0-2 of
+ConvNeXt-B), else LN, ``torch.matmul``, ``ops.gelu``, ``torch.matmul``, layer
+scale and residual, in the working dtype like the flax layers.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from image_classification_tpu_torch.models.layers import (
+    LayerNorm,
+    PatchConv,
+    global_avg_pool,
+    lecun_normal_,
+)
+from image_classification_tpu_torch.ops import (
+    block_mlp,
+    block_mlp_available,
+    depthwise_conv7x7,
+    gelu,
+)
+
+# name -> (depths, dims); aligned with timm model names
+CONVNEXT_CONFIGS: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
+    "convnext_atto": ((2, 2, 6, 2), (40, 80, 160, 320)),
+    "convnext_femto": ((2, 2, 6, 2), (48, 96, 192, 384)),
+    "convnext_pico": ((2, 2, 6, 2), (64, 128, 256, 512)),
+    "convnext_nano": ((2, 2, 8, 2), (80, 160, 320, 640)),
+    "convnext_tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "convnext_small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "convnext_base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+    "convnext_large": ((3, 3, 27, 3), (192, 384, 768, 1536)),
+    "convnext_xlarge": ((3, 3, 27, 3), (256, 512, 1024, 2048)),
+}
+
+
+class DepthwiseConv(nn.Module):
+    """Params of ``nn.Conv2d(dim, dim, 7, padding=3, groups=dim)``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(dim, 1, 7, 7))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # (C, 1, 7, 7) -> the kernel's (7, 7, C); a C*49-element copy
+        w = self.weight[:, 0].permute(1, 2, 0).to(x.dtype).contiguous()
+        return depthwise_conv7x7(x, w) + self.bias.to(x.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, 4 * dim)
+        self.fc2 = nn.Linear(4 * dim, dim)
+
+
+def _dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
+    """flax nn.Dense in x's dtype: the product is rounded, then the bias is
+    added."""
+    return torch.matmul(x, fc.weight.to(x.dtype).t()) + fc.bias.to(x.dtype)
+
+
+class ConvNeXtBlock(nn.Module):
+    def __init__(self, dim: int, layer_scale_init: float = 1e-6):
+        super().__init__()
+        self.conv_dw = DepthwiseConv(dim)
+        self.norm = LayerNorm(dim)
+        self.mlp = Mlp(dim)
+        self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        y = self.conv_dw(x)
+        shape, c = y.shape, y.shape[-1]
+        if block_mlp_available(c):
+            out = block_mlp(
+                y.reshape(-1, c), shortcut.reshape(-1, c),
+                self.norm.weight, self.norm.bias,
+                self.mlp.fc1.weight, self.mlp.fc1.bias,
+                self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma, 1e-6,
+            )
+            return out.view(shape)
+        h = self.norm(y.reshape(-1, c))
+        h = gelu(_dense(h, self.mlp.fc1))
+        h = _dense(h, self.mlp.fc2) * self.gamma.to(h.dtype)
+        return shortcut + h.view(shape)
+
+
+class Stage(nn.Module):
+    def __init__(self, cin: int, dim: int, depth: int, downsample: bool):
+        super().__init__()
+        self.downsample = (
+            nn.Sequential(LayerNorm(cin), PatchConv(cin, dim, 2))
+            if downsample else nn.Identity()
+        )
+        self.blocks = nn.Sequential(*[ConvNeXtBlock(dim) for _ in range(depth)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blocks(self.downsample(x))
+
+
+class Head(nn.Module):
+    def __init__(self, dim: int, num_classes: int):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+        self.fc = nn.Linear(dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(global_avg_pool(x))
+        # the classifier runs in f32 (models/convnext.py head_fc, dtype f32)
+        return torch.matmul(x.float(), self.fc.weight.float().t()) + self.fc.bias.float()
+
+
+class ConvNeXt(nn.Module):
+    """NHWC input (B, H, W, 3) -> logits (B, num_classes) in f32; with
+    ``return_features`` also the outputs of stages 1..3 (the deep-supervision
+    taps)."""
+
+    def __init__(self, num_classes: int = 44,
+                 depths: tuple[int, ...] = (3, 3, 27, 3),
+                 dims: tuple[int, ...] = (128, 256, 512, 1024),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dims = tuple(dims)
+        self.dtype = dtype
+        self.stem = nn.Sequential(PatchConv(3, dims[0], 4), LayerNorm(dims[0]))
+        self.stages = nn.ModuleList(
+            Stage(dims[max(i - 1, 0)], dims[i], depths[i], downsample=i > 0)
+            for i in range(len(depths))
+        )
+        self.head = Head(dims[-1], num_classes)
+
+    @property
+    def feature_dims(self) -> tuple[int, ...]:
+        return self.dims[1:]
+
+    def forward(self, x: torch.Tensor, return_features: bool = False):
+        x = self.stem(x.to(self.dtype))
+        features = []
+        for i, stage in enumerate(self.stages):
+            x = stage(x)
+            if i > 0:
+                features.append(x)
+        logits = self.head(x)
+        return (logits, features) if return_features else logits
+
+
+def init_convnext_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's initialisation, in place: lecun-normal kernels, zero biases,
+    unit LN scales, gamma at its layer-scale init. Covers any module tree of
+    this package (the deep-supervision heads included)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            lecun_normal_(mod.weight, mod.in_features, generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, (PatchConv, DepthwiseConv)):
+            w = mod.weight
+            lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    return model
+
+
+def build_convnext(name: str, num_classes: int,
+                   dtype: torch.dtype = torch.bfloat16) -> ConvNeXt:
+    base = name.split(".")[0]
+    for suffix in ("_in22k", "_in1k", "_384"):
+        base = base.replace(suffix, "")
+    if base not in CONVNEXT_CONFIGS:
+        raise ValueError(f"Unknown ConvNeXt variant: {name}")
+    depths, dims = CONVNEXT_CONFIGS[base]
+    return ConvNeXt(num_classes=num_classes, depths=depths, dims=dims, dtype=dtype)

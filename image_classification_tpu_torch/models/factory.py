@@ -1,0 +1,65 @@
+"""Model factory, port of ``image_classification_tpu/models/factory.py`` for
+the ConvNeXt family. EfficientNet and ViT are not ported yet (ROADMAP queue A,
+item 12)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from image_classification_tpu_torch.models.convnext import (
+    build_convnext,
+    init_convnext_,
+)
+from image_classification_tpu_torch.models.deep_supervision import (
+    DeepSupervisionModel,
+)
+
+
+def _family(name: str) -> str:
+    base = name.split(".")[0]
+    if "convnext" in base:
+        return "convnext"
+    if "efficientnet" in base:
+        return "efficientnet"
+    if base.startswith(("vit_", "deit_")):
+        return "vit"
+    raise ValueError(f"Unknown model family for {name!r}")
+
+
+@dataclass
+class ModelBundle:
+    """A constructed model plus what the predict path needs to drive it."""
+
+    name: str
+    module: nn.Module
+    deep_supervised: bool
+    input_size: tuple[int, int]
+
+
+def create_model(cfg, model_name: str | None = None,
+                 generator: torch.Generator | None = None) -> ModelBundle:
+    """Build the configured model on the CPU, in f32, with flax's
+    initialisation drawn from ``generator`` (seeded from ``cfg.seed`` when
+    omitted). Move it with ``.to(device)``."""
+    name = model_name or cfg.model_name
+    family = _family(name)
+    if family != "convnext":
+        raise NotImplementedError(
+            f"{name}: only ConvNeXt is ported; EfficientNet and ViT are "
+            "ROADMAP queue A, item 12")
+    if cfg.gelu_approximate:
+        raise NotImplementedError("tanh GELU (gelu_approximate=true) is not "
+                                  "ported; the block-tail kernel is exact GELU")
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    module: nn.Module = build_convnext(name, cfg.num_classes, dtype=dtype)
+    deep = bool(cfg.use_deep_supervision)
+    if deep:
+        module = DeepSupervisionModel(module, cfg.num_classes)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_convnext_(module, generator)
+    return ModelBundle(name=name, module=module.eval(), deep_supervised=deep,
+                       input_size=tuple(cfg.image_size))

@@ -1,0 +1,80 @@
+"""The weight carrier: flax ConvNeXt variables -> the port's state dict.
+
+``convnext_state_dict_from_jax(params)`` takes the flax ``params`` collection
+as nested dicts of arrays (numpy, or anything ``np.asarray`` reads) and
+returns the state dict of the port's model, which loads with
+``strict=True``. With deep supervision the tree holds ``backbone/...`` and
+``aux_head{i}``; those heads, which the JAX package's ``export_convnext``
+leaves out, map to ``aux_head{i}.{weight,bias}``. The backbone keys and
+tensors equal ``export_convnext``'s: flax conv kernels HWIO become OIHW (the
+depthwise ``(7, 7, 1, C)`` becomes ``(C, 1, 7, 7)``) and Dense ``(in, out)``
+becomes Linear ``(out, in)``. Depths are read from the tree.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _conv(w) -> np.ndarray:  # flax HWIO -> torch OIHW
+    return np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))
+
+
+def _linear(w) -> np.ndarray:  # flax (in, out) -> torch (out, in)
+    return np.transpose(np.asarray(w, np.float32), (1, 0))
+
+
+def _vec(v) -> np.ndarray:
+    return np.asarray(v, np.float32)
+
+
+def _backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    sd = {
+        "stem.0.weight": _conv(p["stem_conv"]["kernel"]),
+        "stem.0.bias": _vec(p["stem_conv"]["bias"]),
+        "stem.1.weight": _vec(p["stem_norm"]["scale"]),
+        "stem.1.bias": _vec(p["stem_norm"]["bias"]),
+    }
+    i = 0
+    while f"stage{i}_block0" in p:
+        if i > 0:
+            norm, conv = p[f"downsample{i}_norm"], p[f"downsample{i}_conv"]
+            sd[f"stages.{i}.downsample.0.weight"] = _vec(norm["scale"])
+            sd[f"stages.{i}.downsample.0.bias"] = _vec(norm["bias"])
+            sd[f"stages.{i}.downsample.1.weight"] = _conv(conv["kernel"])
+            sd[f"stages.{i}.downsample.1.bias"] = _vec(conv["bias"])
+        j = 0
+        while f"stage{i}_block{j}" in p:
+            b, tp = p[f"stage{i}_block{j}"], f"stages.{i}.blocks.{j}"
+            sd[f"{tp}.conv_dw.weight"] = _conv(b["conv_dw"]["kernel"])
+            sd[f"{tp}.conv_dw.bias"] = _vec(b["conv_dw"]["bias"])
+            sd[f"{tp}.norm.weight"] = _vec(b["norm"]["scale"])
+            sd[f"{tp}.norm.bias"] = _vec(b["norm"]["bias"])
+            for fc in ("fc1", "fc2"):
+                sd[f"{tp}.mlp.{fc}.weight"] = _linear(b[f"mlp_{fc}"]["kernel"])
+                sd[f"{tp}.mlp.{fc}.bias"] = _vec(b[f"mlp_{fc}"]["bias"])
+            sd[f"{tp}.gamma"] = _vec(b["gamma"])
+            j += 1
+        i += 1
+    sd["head.norm.weight"] = _vec(p["head_norm"]["scale"])
+    sd["head.norm.bias"] = _vec(p["head_norm"]["bias"])
+    sd["head.fc.weight"] = _linear(p["head_fc"]["kernel"])
+    sd["head.fc.bias"] = _vec(p["head_fc"]["bias"])
+    return sd
+
+
+def convnext_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    if "backbone" in params:
+        sd = {f"backbone.{k}": v for k, v in _backbone(params["backbone"]).items()}
+        i = 0
+        while f"aux_head{i}" in params:
+            head = params[f"aux_head{i}"]
+            sd[f"aux_head{i}.weight"] = _linear(head["kernel"])
+            sd[f"aux_head{i}.bias"] = _vec(head["bias"])
+            i += 1
+    else:
+        sd = _backbone(params)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}

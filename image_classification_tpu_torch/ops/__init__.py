@@ -1,0 +1,30 @@
+"""The port's hand-written kernels, each beside its plain PyTorch version.
+
+A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor it
+launches its kernel or raises. Each wrapper counts its launches in a plain
+integer attribute, ``<wrapper>.launches``.
+"""
+
+from image_classification_tpu_torch.ops.block_mlp import (
+    block_mlp,
+    block_mlp_available,
+    block_mlp_reference,
+)
+from image_classification_tpu_torch.ops.dwconv import (
+    depthwise_conv7x7,
+    depthwise_conv7x7_reference,
+)
+from image_classification_tpu_torch.ops.gelu import gelu, gelu_reference
+
+KERNEL_WRAPPERS = (depthwise_conv7x7, block_mlp, gelu)
+
+__all__ = [
+    "KERNEL_WRAPPERS",
+    "block_mlp",
+    "block_mlp_available",
+    "block_mlp_reference",
+    "depthwise_conv7x7",
+    "depthwise_conv7x7_reference",
+    "gelu",
+    "gelu_reference",
+]

@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs on first use (never
+at import), writes under ``image_classification_tpu_torch/_build/`` (listed in
+``.gitignore``), and is keyed by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads in milliseconds. It needs the CUDA
+toolkit; nothing here runs on a machine without it.
+
+Pointer and stream arguments are ``ctypes.c_void_p``; each entry point returns
+``cudaGetLastError()`` after its launches, and :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+# Must match csrc/common.cuh IcDtype.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "ic_dwconv7x7_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ic_block_mlp_fwd": [_P] * 12 + [ctypes.c_int64, _I, _I, ctypes.c_float,
+                                     _I, _P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found: nvcc is needed to build "
+                           "the port's kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libic_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if it is missing; returns (path, seconds spent)."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    # Compile to a private name, then rename: a concurrent build or reader
+    # never sees a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built and loaded kernel library (built on first call)."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ic_error_string.argtypes = [ctypes.c_int]
+    lib.ic_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = library().ic_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: tensors must share one CUDA device, "
+                             f"got {[str(u.device) for u in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

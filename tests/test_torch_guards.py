@@ -1,0 +1,89 @@
+"""Guards on the port's boundaries: its Config copy stays the JAX package's,
+it imports no JAX, and its kernel wrappers take the plain path on the CPU."""
+
+import dataclasses
+import glob
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from image_classification_tpu.core.config import Config as JaxConfig
+from image_classification_tpu.core.config import load_config as jax_load_config
+import image_classification_tpu_torch
+from image_classification_tpu_torch.core.config import Config, load_config
+from image_classification_tpu_torch.ops import (
+    KERNEL_WRAPPERS,
+    block_mlp,
+    depthwise_conv7x7,
+    gelu,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRESETS = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
+
+
+def test_config_fields_and_defaults_match_jax():
+    ours = [(f.name, str(f.type)) for f in dataclasses.fields(Config)]
+    theirs = [(f.name, str(f.type)) for f in dataclasses.fields(JaxConfig)]
+    assert ours == theirs
+    assert Config().to_dict() == JaxConfig().to_dict()
+
+
+@pytest.mark.parametrize("path", PRESETS, ids=os.path.basename)
+def test_presets_load_like_jax(path):
+    assert load_config(path).to_dict() == jax_load_config(path).to_dict()
+
+
+@pytest.mark.parametrize("override", [
+    "num_classes=1", "batch_size=3", "grad_accum_reduction=avg",
+    "schedule_horizon=epochs", "schedule=step", "dwconv_impl=fft",
+    "block_mlp_impl=triton", "warp_impl=cuda", "downsample_impl=pool",
+    "gelu_impl=tanh", "block_remat=some", "hbm_cache=maybe",
+    "norm_stats=custom", "split_mode=loo", "val_fraction=1.5",
+    "progressive_resizing=true progressive_scales=[0.5,0.9]",
+    "no_such_key=1", "lr",
+])
+def test_validation_errors_match_jax(override):
+    with pytest.raises(Exception) as theirs:
+        jax_load_config(None, override.split())
+    with pytest.raises(type(theirs.value)) as ours:
+        load_config(None, override.split())
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    names = [m.name for m in pkgutil.walk_packages(
+        image_classification_tpu_torch.__path__, "image_classification_tpu_torch.")]
+    assert "image_classification_tpu_torch.ops.block_mlp" in names
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for n in {names!r}: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
+        "assert not any(m.startswith('image_classification_tpu.') or "
+        "m == 'image_classification_tpu' for m in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrappers_take_the_plain_path_on_cpu(dtype):
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    x = torch.randn(2, 9, 9, 16).to(dtype)
+    assert depthwise_conv7x7(x, torch.randn(7, 7, 16)).dtype == dtype
+    assert gelu(x).dtype == dtype
+    c = 16
+    rows = x.reshape(-1, c)
+    y = block_mlp(rows, rows, torch.ones(c), torch.zeros(c), torch.randn(4 * c, c),
+                  torch.zeros(4 * c), torch.randn(c, 4 * c), torch.zeros(c),
+                  torch.full((c,), 0.5))
+    assert y.shape == rows.shape and y.dtype == dtype
+    assert [fn.launches for fn in KERNEL_WRAPPERS] == [0, 0, 0]
