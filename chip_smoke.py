@@ -1,14 +1,21 @@
-"""On-card smoke test of the PyTorch port: builds its kernels, holds each one
-against its plain PyTorch version at the shapes of the predict slice, then
-runs the slice itself (``cli predict``: 2 fold models of ConvNeXt-B with deep
-supervision, 44 classes, 260x260, bf16, scale4 TTA) and checks it against
-the same slice run through the plain versions in f32.
+"""On-card smoke test of the PyTorch port. It builds the port's kernels and
+holds each one against its plain PyTorch version on the card (forward
+kernels at the predict slice's shapes, backward kernels at the train step's),
+then runs the two slices through their entry points and checks each against
+the same work through the plain versions in f32:
+
+* train: ``make_train_step`` of ConvNeXt-B with deep supervision, 44
+  classes, 260x260, bf16, batch 32 with gradient accumulation 2, clip, AdamW
+  and EMA (``configs/v4.json`` with ``aug_enabled=false``), then an eval
+  step on the EMA weights;
+* predict: ``cli predict``, 2 fold models, scale4 TTA.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and Triton; imports no JAX. It
 exits non-zero, before printing any result, when there is no card or any
-phase fails. The last line is
+phase fails. It prints a ``torch.profiler`` table of one train step. The
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -33,6 +40,7 @@ from image_classification_tpu_torch.data import (
     SequentialSampler,
 )
 from image_classification_tpu_torch.data.source import decode_cache_key
+from image_classification_tpu_torch.aug.pipeline import eval_preprocess
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
@@ -40,12 +48,29 @@ from image_classification_tpu_torch.ops import (
     _build,
     block_mlp,
     block_mlp_available,
+    block_mlp_bwd,
+    block_mlp_bwd_reference,
+    block_mlp_fwd,
+    block_mlp_fwd_reference,
     block_mlp_reference,
     depthwise_conv7x7,
+    depthwise_conv7x7_bwd,
+    depthwise_conv7x7_bwd_reference,
     depthwise_conv7x7_reference,
     gelu,
+    gelu_bwd,
+    gelu_grad_reference,
     gelu_reference,
 )
+from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
+from image_classification_tpu_torch.train.loss import build_criterion
+from image_classification_tpu_torch.train.optim import build_optimizer
+from image_classification_tpu_torch.train.step import (
+    accumulate_grads,
+    make_eval_step,
+    make_train_step,
+)
+from image_classification_tpu_torch.train.train_state import create_train_state
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL = "convnext_base"
@@ -60,22 +85,58 @@ FOLD_SEEDS = (0, 1)
 # Stage sizes at 260 px: 65, 33, 17, 9 (flax SAME padding on odd sizes).
 STAGE_HW = (65, 33, 17, 9)
 DEPTHS, DIMS = CONVNEXT_CONFIGS[MODEL]
+MICRO = 16               # train microbatch: batch 32 / gradient accumulation 2
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+REF_BATCH = 4            # images in the train step held against the f32 host step
+# The schedule's horizon needs a fold size: ~2/3 of a 44-class set of ~5000
+# images in batches of 32 gives ~100 optimizer steps an epoch. The state
+# starts at the end of warmup, where the LR peaks, so the checked update
+# moves every parameter.
+STEPS_PER_EPOCH = 100
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the rate of the units that run them.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # Tolerances, kernel vs plain version on identical bf16 inputs.
 # dwconv, GELU: both compute in f32 and round once to bf16; the f32 results
 # differ only in summation order / instruction choice (~1e-7 relative), which
 # can move a rounding by at most one bf16 ulp.
 ULP_TOL = 1
-# block tail: two GEMMs with K up to 2048 whose f32 sums run in another order,
-# and h is rounded to bf16 between them, so a one-ulp flip in h (2^-8
-# relative) reaches y through fc2; bound the error by 2% of max |y|.
+# block tail: GEMMs with K up to 2048 whose f32 sums run in another order,
+# and h (forward) or du, da (backward) are rounded to bf16 between them, so a
+# one-ulp flip (2^-8 relative) reaches the next product; bound the error by
+# 2% of the largest element of each output.
 BLOCK_REL_TOL = 2e-2
+# dw of the depthwise conv: f32 sums of B*H*W = up to 67,600 bf16-rounded
+# products in another order; f32 rounding then differs by ~sqrt(n) * 2^-24 of
+# the terms' scale, far inside 1e-3 of the largest element.
+DW_REL_TOL = 1e-3
 # Slice: bf16 kernels vs f32 plain versions end to end. bf16 keeps 8 bits, so
 # each of the 36 residual blocks adds ~0.4% relative noise to its output and
 # the logits move by a few 1e-2. The first full run on an H100 measured
 # max |d prob| = 6.5e-4 over 100 images; the bound is 3x that. Argmax must
 # agree wherever the plain top-2 margin exceeds 2 * PROB_TOL.
 PROB_TOL = 2e-3
+# Train step, bf16 kernels vs f32 plain versions on the host, one step on
+# fixed seeds (the kernels' sums run in a fixed order, so the numbers repeat
+# from run to run). Each parameter's gradient passes back through up to 36
+# bf16 blocks, each adding ~0.4% relative noise. The first full run on an
+# H100 measured: loss rel err 3.6e-5, smallest per-tensor gradient cosine
+# 0.99993 (a LayerNorm scale of stage 0), relative L2 error of the whole
+# gradient 0.0074, of the update 0.057. The bounds are ~4x those (cosine:
+# 1 - cos 14x). One AdamW step from a fresh state at count c moves each
+# parameter by lr * (1-b1) / sqrt((1-b2) / (1-b2^(c+1))) * sign(g) (1.83 lr
+# at the checked count) plus the decay: elements whose gradient is near zero
+# may step either way, so the update is held in relative L2 and the
+# parameters and EMA to 4 lr of each other.
+TRAIN_LOSS_REL_TOL = 1e-3
+GRAD_MIN_COS = 0.999
+GRAD_REL_L2 = 0.03
+UPDATE_REL_L2 = 0.2
 
 
 class SmokeFailure(RuntimeError):
@@ -136,102 +197,451 @@ def block_tail_inputs(gen, m, c, dtype):
     )
 
 
-def check_kernels() -> list[dict]:
-    """Phase 2: each kernel against its plain version on the card, at the
-    slice's shapes in bf16 (timed), and at small shapes in f32."""
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    results = []
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
 
-    def report(name, shape, err, ulps, ms, plain_ms):
-        print(f"kernel {name} {shape}: max_abs_err={err:.6g} ulps={ulps} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
 
-    # f32 paths at small odd shapes: the same kernels must match to f32 noise
+class KernelTable:
+    """Per kernel: error, kernel / plain / library times and the bound, each
+    summed over the launches of one pass of the slice (``per`` launches at
+    each timed shape)."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, shape, per, err, ms, plain_ms, library_ms, nbytes,
+            flops, flops_rate):
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": flops / flops_rate * 1e3}
+        print(f"kernel {name} {shape} x{per}: max_abs_err={err:.6g} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{'-' if library_ms is None else f'{library_ms:.4f}'} "
+              f"bound_ms={max(bound.values()):.4f} "
+              f"({max(bound, key=bound.get)})", flush=True)
+        row = self.rows.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": None if library_ms is None else 0.0,
+            "bytes_ms": 0.0, "operations_ms": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += per * ms
+        row["plain_ms"] += per * plain_ms
+        if library_ms is not None:
+            row["library_ms"] += per * library_ms
+        row["bytes_ms"] += per * bound["bytes"]
+        row["operations_ms"] += per * bound["operations"]
+
+    def entries(self, meta: dict) -> list[dict]:
+        out = []
+        for name, (route, source, replaces) in meta.items():
+            r = self.rows[name]
+            by = "bytes" if r["bytes_ms"] >= r["operations_ms"] else "operations"
+            out.append({
+                "name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": max(r["bytes_ms"], r["operations_ms"]),
+                "bound_by": by, "library_ms": r["library_ms"],
+            })
+        return out
+
+
+KERNEL_META = {
+    "dwconv": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
+               "image_classification_tpu/ops/dwconv.py:205"),
+    "block_mlp": ("cuda", "image_classification_tpu_torch/csrc/block_mlp.cu",
+                  "image_classification_tpu/ops/block_mlp.py:253"),
+    "gelu": ("triton", "image_classification_tpu_torch/ops/gelu.py",
+             "image_classification_tpu/ops/gelu.py:74"),
+    "dwconv_bwd": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
+                   "image_classification_tpu/ops/dwconv.py:243"),
+    "block_mlp_bwd": ("cuda", "image_classification_tpu_torch/csrc/block_mlp.cu",
+                      "image_classification_tpu/ops/block_mlp.py:305"),
+    "gelu_bwd": ("triton", "image_classification_tpu_torch/ops/gelu.py",
+                 "image_classification_tpu/ops/gelu.py:109"),
+}
+WRAPPERS = {"dwconv": depthwise_conv7x7, "block_mlp": block_mlp, "gelu": gelu,
+            "dwconv_bwd": depthwise_conv7x7_bwd, "block_mlp_bwd": block_mlp_bwd,
+            "gelu_bwd": gelu_bwd}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def check_f32_paths(gen) -> None:
+    """Every kernel's f32 path at small odd shapes: the same kernels must
+    match their plain versions to f32 noise."""
     x = randn(gen, 2, 9, 13, 40, dtype=torch.float32)
     w = randn(gen, 7, 7, 40, dtype=torch.float32)
     err = (depthwise_conv7x7(x, w) - depthwise_conv7x7_reference(x, w)).abs().max().item()
     require(err <= 1e-5, f"dwconv f32 err {err}")
+    g = randn(gen, 2, 9, 13, 40, dtype=torch.float32)
+    for ours, ref in zip(depthwise_conv7x7_bwd(x, g, w),
+                         depthwise_conv7x7_bwd_reference(x, g, w)):
+        require(max_rel(ours, ref) <= 1e-5, f"dwconv bwd f32 rel err "
+                f"{max_rel(ours, ref)}")
     x = randn(gen, 37, 129, scale=3.0, dtype=torch.float32)
+    dy = randn(gen, 37, 129, dtype=torch.float32)
     err = (gelu(x) - gelu_reference(x)).abs().max().item()
     require(err <= 1e-5, f"gelu f32 err {err}")
+    err = (gelu_bwd(x, dy) - gelu_grad_reference(x, dy)).abs().max().item()
+    require(err <= 1e-5, f"gelu bwd f32 err {err}")
     args = block_tail_inputs(gen, 77, 40, torch.float32)
     err = (block_mlp(*args) - block_mlp_reference(*args)).abs().max().item()
     require(err <= 1e-4, f"block tail f32 err {err}")
+    saved = block_mlp_fwd(*args, 1e-6, save=True)
+    for ours, ref in zip(saved, block_mlp_fwd_reference(*args)):
+        require(max_rel(ours, ref) <= 1e-5, "block tail training forward f32")
+    dy = randn(gen, 77, 40, dtype=torch.float32)
+    x, a, u = args[0], saved[1], saved[2]
+    for i, (ours, ref) in enumerate(zip(
+            block_mlp_bwd(x, a, u, *args[2:], dy),
+            block_mlp_bwd_reference(x, a, u, *args[2:], dy))):
+        require(max_rel(ours, ref) <= 1e-5, f"block tail bwd f32 output {i}: "
+                f"{max_rel(ours, ref)}")
     print("f32 kernel paths agree with their plain versions", flush=True)
 
-    per_forward = {"dwconv": [0.0, 0.0], "block_mlp": [0.0, 0.0], "gelu": [0.0, 0.0]}
-    max_err = {k: 0.0 for k in per_forward}
+
+def library_dwconv(x, w):
+    """One cuDNN call, F.conv2d(groups=C) on a channels-last bf16 tensor."""
+    xc = x.permute(0, 3, 1, 2)                 # NHWC storage = channels_last
+    wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+    return lambda: torch.nn.functional.conv2d(xc, wc, padding=3, groups=x.shape[-1])
+
+
+def library_dwconv_bwd(x, g, w):
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+    return lambda: torch.ops.aten.convolution_backward(
+        gc, xc, wc, None, [1, 1], [3, 3], [1, 1], False, [0, 0], x.shape[-1],
+        [True, True, False])
+
+
+def check_kernels() -> list[dict]:
+    """Phase 2: each kernel against its plain version on the card, in bf16
+    (timed) at the predict slice's shapes for the forward kernels and the
+    train step's (microbatch 16) for the backward ones, and at small shapes
+    in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    check_f32_paths(gen)
+    table = KernelTable()
     for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, DIMS, DEPTHS)):
+        # ---- forward kernels, predict shapes: one forward of 256 views
         x = randn(gen, VIEWS_BATCH, hw, hw, c)
         w = randn(gen, 7, 7, c, scale=0.15)
         y, ref = depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w)
         ulps = bf16_ulp_distance(y, ref)
-        err = (y.float() - ref.float()).abs().max().item()
         require(ulps <= ULP_TOL, f"dwconv stage {stage}: {ulps} ulps")
-        ms = time_ms(lambda: depthwise_conv7x7(x, w), 10)
-        pms = time_ms(lambda: depthwise_conv7x7_reference(x, w), 5)
-        report("dwconv", tuple(x.shape), err, ulps, ms, pms)
-        per_forward["dwconv"][0] += depth * ms
-        per_forward["dwconv"][1] += depth * pms
-        max_err["dwconv"] = max(max_err["dwconv"], err)
+        n = x.numel()
+        table.add("dwconv", tuple(x.shape), depth,
+                  (y.float() - ref.float()).abs().max().item(),
+                  time_ms(lambda: depthwise_conv7x7(x, w), 10),
+                  time_ms(lambda: depthwise_conv7x7_reference(x, w), 5),
+                  time_ms(library_dwconv(x, w), 10),
+                  4 * n, 2 * 49 * n, FP32_FLOPS)
         del x, y, ref
-
         if block_mlp_available(c):
             m = VIEWS_BATCH * hw * hw
             args = block_tail_inputs(gen, m, c, torch.bfloat16)
             y, ref = block_mlp(*args), block_mlp_reference(*args)
             err = (y.float() - ref.float()).abs().max().item()
-            bound = BLOCK_REL_TOL * ref.float().abs().max().item()
-            require(err <= bound, f"block tail stage {stage}: {err} > {bound}")
-            ms = time_ms(lambda: block_mlp(*args), 5)
-            pms = time_ms(lambda: block_mlp_reference(*args), 2)
-            report("block_mlp", (m, c), err, "-", ms, pms)
-            per_forward["block_mlp"][0] += depth * ms
-            per_forward["block_mlp"][1] += depth * pms
-            max_err["block_mlp"] = max(max_err["block_mlp"], err)
+            require(max_rel(y, ref) <= BLOCK_REL_TOL,
+                    f"block tail stage {stage}: rel err {max_rel(y, ref)}")
+            table.add("block_mlp", (m, c), depth, err,
+                      time_ms(lambda: block_mlp(*args), 5),
+                      time_ms(lambda: block_mlp_reference(*args), 2), None,
+                      6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
             del args, y, ref
         else:
             x = randn(gen, VIEWS_BATCH * hw * hw, 4 * c, scale=3.0)
             y, ref = gelu(x), gelu_reference(x)
             ulps = bf16_ulp_distance(y, ref)
-            err = (y.float() - ref.float()).abs().max().item()
             require(ulps <= ULP_TOL, f"gelu: {ulps} ulps")
-            ms = time_ms(lambda: gelu(x), 20)
-            pms = time_ms(lambda: gelu_reference(x), 5)
-            report("gelu", tuple(x.shape), err, ulps, ms, pms)
-            per_forward["gelu"][0] += depth * ms
-            per_forward["gelu"][1] += depth * pms
-            max_err["gelu"] = err
+            table.add("gelu", tuple(x.shape), depth,
+                      (y.float() - ref.float()).abs().max().item(),
+                      time_ms(lambda: gelu(x), 20),
+                      time_ms(lambda: gelu_reference(x), 5),
+                      time_ms(lambda: torch.nn.functional.gelu(x), 20),
+                      4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
             del x, y, ref
         torch.cuda.empty_cache()
 
-    meta = {
-        "dwconv": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
-                   "image_classification_tpu/ops/dwconv.py:205"),
-        "block_mlp": ("cuda", "image_classification_tpu_torch/csrc/block_mlp.cu",
-                      "image_classification_tpu/ops/block_mlp.py:253"),
-        "gelu": ("triton", "image_classification_tpu_torch/ops/gelu.py",
-                 "image_classification_tpu/ops/gelu.py:74"),
-    }
-    for name, (route, source, replaces) in meta.items():
-        results.append({
-            "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": 0,
-            "max_abs_err": max_err[name],
-            # summed over the blocks of one forward of 256 views
-            "ms": per_forward[name][0], "plain_ms": per_forward[name][1],
-        })
-    return results
+        # ---- backward kernels, train shapes: one microbatch of 16 images
+        x = randn(gen, MICRO, hw, hw, c)
+        g = randn(gen, MICRO, hw, hw, c)
+        w = randn(gen, 7, 7, c, scale=0.15)
+        (dx, dw), (rdx, rdw) = (depthwise_conv7x7_bwd(x, g, w),
+                                depthwise_conv7x7_bwd_reference(x, g, w))
+        ulps = bf16_ulp_distance(dx, rdx)
+        require(ulps <= ULP_TOL, f"dwconv bwd stage {stage}: dx {ulps} ulps")
+        require(max_rel(dw, rdw) <= DW_REL_TOL,
+                f"dwconv bwd stage {stage}: dw rel err {max_rel(dw, rdw)}")
+        require(torch.equal(depthwise_conv7x7_bwd(x, g, w)[1], dw),
+                "dwconv bwd: dw differs between two runs")
+        n = x.numel()
+        table.add("dwconv_bwd", tuple(x.shape), depth,
+                  (dx.float() - rdx.float()).abs().max().item(),
+                  time_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 10),
+                  time_ms(lambda: depthwise_conv7x7_bwd_reference(x, g, w), 3),
+                  time_ms(library_dwconv_bwd(x, g, w), 10),
+                  6 * n, 4 * 49 * n, FP32_FLOPS)
+        del x, g, dx, dw, rdx, rdw
+        if block_mlp_available(c):
+            m = MICRO * hw * hw
+            args = block_tail_inputs(gen, m, c, torch.bfloat16)
+            y, a, u = block_mlp_fwd(*args, 1e-6, save=True)
+            for name, ours, ref in zip("yau", (y, a, u), block_mlp_fwd_reference(*args)):
+                require(max_rel(ours, ref) <= BLOCK_REL_TOL,
+                        f"block tail training forward stage {stage}: {name}")
+            dy = randn(gen, m, c)
+            bwd_args = (args[0], a, u, *args[2:], dy)
+            ours, ref = block_mlp_bwd(*bwd_args), block_mlp_bwd_reference(*bwd_args)
+            rels = [max_rel(o, r) for o, r in zip(ours, ref)]
+            require(max(rels) <= BLOCK_REL_TOL,
+                    f"block tail bwd stage {stage}: rel errs {rels}")
+            again = block_mlp_bwd(*bwd_args)
+            require(all(torch.equal(p, q) for p, q in zip(ours, again)),
+                    "block tail bwd differs between two runs")
+            print(f"block tail bwd stage {stage}: max rel err of (dx, dres, ds, "
+                  f"dt, dw1, db1, dw2, db2, dg) = {[f'{r:.2e}' for r in rels]}",
+                  flush=True)
+            table.add("block_mlp_bwd", (m, c), depth,
+                      (ours[0].float() - ref[0].float()).abs().max().item(),
+                      time_ms(lambda: block_mlp_bwd(*bwd_args), 5),
+                      time_ms(lambda: block_mlp_bwd_reference(*bwd_args), 2),
+                      None, 16 * m * c + 16 * c * c, 32 * m * c * c,
+                      BF16_TENSOR_FLOPS)
+            del args, y, a, u, dy, bwd_args, ours, ref, again
+        else:
+            x = randn(gen, MICRO * hw * hw, 4 * c, scale=3.0)
+            dy = randn(gen, MICRO * hw * hw, 4 * c)
+            dx, ref = gelu_bwd(x, dy), gelu_grad_reference(x, dy)
+            ulps = bf16_ulp_distance(dx, ref)
+            require(ulps <= ULP_TOL, f"gelu bwd: {ulps} ulps")
+            table.add("gelu_bwd", tuple(x.shape), depth,
+                      (dx.float() - ref.float()).abs().max().item(),
+                      time_ms(lambda: gelu_bwd(x, dy), 20),
+                      time_ms(lambda: gelu_grad_reference(x, dy), 5),
+                      time_ms(lambda: torch.ops.aten.gelu_backward(dy, x), 20),
+                      6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
+            del x, dy, dx, ref
+        torch.cuda.empty_cache()
+    return table.entries(KERNEL_META)
+
+
+# ---------------------------------------------------------------- train
+def synthetic_images(n: int, seed: int) -> np.ndarray:
+    """uint8 60x80 images from a numpy seed: a random colour per image plus
+    noise."""
+    rng = np.random.default_rng(seed)
+    colour = rng.uniform(0, 255, size=(n, 1, 1, 3))
+    noise = rng.normal(0, 40, size=(n, *NATIVE, 3))
+    return np.clip(np.round(colour + noise), 0, 255).astype(np.uint8)
+
+
+def train_inputs(cfg, n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Images through the ported ``eval_preprocess`` (260x260, normalized,
+    f32, on the host) and labels from a numpy seed."""
+    images = eval_preprocess(torch.from_numpy(synthetic_images(n, seed)),
+                             tuple(cfg.image_size), tuple(cfg.mean),
+                             tuple(cfg.std))
+    labels = np.random.default_rng(seed + 1).integers(0, cfg.num_classes, n)
+    return images, torch.from_numpy(labels)
+
+
+def seeded_model(cfg, seed: int):
+    """The configured model from a torch.Generator seed, with layer scale
+    drawn from U(0.3, 0.7) instead of its 1e-6 init so every block changes
+    its input."""
+    gen = torch.Generator().manual_seed(seed)
+    bundle = create_model(cfg, generator=gen)
+    with torch.no_grad():
+        for name, p in bundle.module.named_parameters():
+            if name.endswith(".gamma"):
+                p.copy_(0.3 + 0.4 * torch.rand(p.shape, generator=gen))
+    return bundle
+
+
+def train_model(cfg, device):
+    bundle = seeded_model(cfg, seed=7)
+    bundle.module.to(device)
+    return bundle
+
+
+def rel_l2(a: list[torch.Tensor], b: list[torch.Tensor]) -> float:
+    num = sum(float((x.double() - y.double()).pow(2).sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().pow(2).sum()) for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def check_train_step(cfg) -> dict:
+    """One optimizer step on REF_BATCH images, bf16 kernels on the card
+    against the f32 plain versions on the host, from the same state."""
+    cfg32 = cfg.replace(compute_dtype="float32")
+    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
+    start = int(STEPS_PER_EPOCH * cfg.epochs * cfg.gradient_accumulation_steps
+                * cfg.warmup_ratio)
+    images, labels = train_inputs(cfg, REF_BATCH, seed=11)
+    runs = {}
+    for name, c, device in (("card", cfg, "cuda"), ("host", cfg32, "cpu")):
+        bundle = train_model(c, device)
+        model = bundle.module
+        crit = build_criterion(c)
+        x, y = images.to(device), labels.to(device)
+        grads, m = accumulate_grads(model, c, crit, x, y)
+        state = create_train_state(model)
+        state.count = state.step = start
+        before = [p.detach().clone() for p in state.params()]
+        step = make_train_step(bundle, c, tx, crit)
+        state, m2 = step(state, {"image": x, "label": y})
+        runs[name] = {
+            "loss": float(m["loss"]), "loss2": float(m2["loss"]),
+            "grads": [g.float().cpu() for g in grads],
+            "update": [(p.detach() - q).cpu() for p, q in zip(state.params(), before)],
+            "params": [p.detach().cpu() for p in state.params()],
+            "ema": [e.cpu() for e in state.ema],
+            "names": state.names(),
+        }
+        del bundle, model, state, grads, before
+        torch.cuda.empty_cache()
+    card, host = runs["card"], runs["host"]
+    lr = tx.schedule(start)
+    loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    cos = [float(torch.nn.functional.cosine_similarity(a.flatten().double(),
+                                                       b.flatten().double(), dim=0))
+           for a, b in zip(card["grads"], host["grads"])]
+    worst = int(np.argmin(cos))
+    grad_rel = rel_l2(card["grads"], host["grads"])
+    upd_rel = rel_l2(card["update"], host["update"])
+    p_err = max(float((a - b).abs().max()) for a, b in zip(card["params"], host["params"]))
+    e_err = max(float((a - b).abs().max()) for a, b in zip(card["ema"], host["ema"]))
+    print(f"train step vs f32 host step ({REF_BATCH} images, lr {lr:.3g}): loss "
+          f"{card['loss']:.6f} vs {host['loss']:.6f} (rel {loss_rel:.3g}); "
+          f"gradient cosine min {min(cos):.5f} ({card['names'][worst]}), median "
+          f"{float(np.median(cos)):.5f}; gradient rel L2 {grad_rel:.4g}; update "
+          f"rel L2 {upd_rel:.4g}; max |d param| {p_err:.3g}, max |d ema| "
+          f"{e_err:.3g}", flush=True)
+    for run in (card, host):
+        require(abs(run["loss"] - run["loss2"]) <= TRAIN_LOSS_REL_TOL * abs(run["loss"]),
+                "the train step's loss differs from its gradient pass")
+    require(loss_rel <= TRAIN_LOSS_REL_TOL, f"train loss rel err {loss_rel}")
+    require(min(cos) >= GRAD_MIN_COS, f"gradient cosine {min(cos)}")
+    require(grad_rel <= GRAD_REL_L2, f"gradient rel L2 {grad_rel}")
+    require(upd_rel <= UPDATE_REL_L2, f"update rel L2 {upd_rel}")
+    require(p_err <= 4 * lr and e_err <= 4 * lr,
+            f"params/EMA differ by {p_err}/{e_err} > 4 lr")
+    return {"loss_rel": loss_rel, "grad_min_cos": min(cos), "grad_rel_l2": grad_rel,
+            "update_rel_l2": upd_rel}
+
+
+def profile_train_step(step, state, batches, step_wall_ms: float) -> float:
+    """The last of ``batches``' train steps under torch.profiler (the first
+    warms the profiler up): its device time by kernel name, printed. The
+    device's idle share is taken against ``step_wall_ms``, the wall time of a
+    step in the timed run, since the profiler slows the host. Returns the
+    device time of the step in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for b in batches:   # one profiler per step; the last one is read
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, b)
+            torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    idle = max(0.0, 1 - device_ms / step_wall_ms)
+    print(f"profile of one train step of 32 images: device kernel time "
+          f"{device_ms:.3f} ms, wall {step_wall_ms:.3f} ms a step in the timed "
+          f"run, device idle {idle:.1%}", flush=True)
+    for ms, count, key in rows:
+        print(f"  {ms:9.3f} ms {count:5d}x {key[:100]}", flush=True)
+    return device_ms
+
+
+def run_train(kernels: list[dict]) -> dict:
+    """Phase 3: the train slice on the card, then an eval step on the EMA
+    weights."""
+    cfg = load_config(os.path.join(REPO, "configs", "v4.json"), ["aug_enabled=false"])
+    require(cfg.batch_size == 32 and cfg.gradient_accumulation_steps == 2,
+            "configs/v4.json no longer trains in batches of 32 with accumulation 2")
+    check = check_train_step(cfg.replace(batch_size=REF_BATCH))
+
+    bundle = train_model(cfg, "cuda")
+    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
+    step = make_train_step(bundle, cfg, tx, build_criterion(cfg))
+    state = create_train_state(bundle.module)
+    n = TRAIN_WARMUP + TRAIN_STEPS + 2
+    images, labels = train_inputs(cfg, n * cfg.batch_size, seed=21)
+    batches = [{"image": images[i::n].cuda(), "label": labels[i::n].cuda()}
+               for i in range(n)]
+    del images, labels
+    losses = []
+    for b in batches[:TRAIN_WARMUP]:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                          # main path: counts from 0
+    t0 = time.perf_counter()
+    for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    print(f"train: {TRAIN_STEPS * cfg.batch_size / wall:.2f} images/s "
+          f"({TRAIN_STEPS} steps of {cfg.batch_size} in {wall:.3f} s), peak memory "
+          f"{peak_gib:.3f} GiB, losses {[round(v, 4) for v in losses]}, "
+          f"launches {launches}", flush=True)
+    require(all(np.isfinite(losses)), "non-finite train loss")
+    accum = cfg.gradient_accumulation_steps
+    per_step = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
+                "gelu": DEPTHS[3]}
+    for k, n_fwd in per_step.items():
+        for name in (k, f"{k}_bwd"):
+            want = n_fwd * accum * TRAIN_STEPS
+            require(launches[name] == want, f"{name}: {launches[name]} launches "
+                    f"in {TRAIN_STEPS} steps, expected {want}")
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    device_ms = profile_train_step(step, state, batches[-2:],
+                                   wall * 1e3 / TRAIN_STEPS)
+
+    # an eval step on the EMA weights, 64 images with 4 padding rows
+    eval_step = make_eval_step(bundle, cfg)
+    imgs = synthetic_images(64, seed=31)
+    ev_labels = np.random.default_rng(32).integers(0, cfg.num_classes, 64)
+    mask = np.arange(64) < 60
+    batch = {"image": torch.from_numpy(imgs).cuda(),
+             "label": torch.from_numpy(ev_labels).cuda(), "mask": mask}
+    metrics = evaluate(eval_step, state, [batch])
+    print(f"eval on the EMA weights: loss {metrics['loss']:.5f} accuracy "
+          f"{metrics['accuracy']:.4f} macro F1 {metrics['macro_f1']:.4f}",
+          flush=True)
+    require(np.isfinite(metrics["loss"]), "non-finite eval loss")
+    require(int(metrics["confusion"].sum()) == 60, "eval counted padding rows")
+    return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall,
+            "peak_mem_gib": peak_gib, "device_ms": device_ms, **check}
 
 
 def synthetic_test_set(cfg) -> tuple[list[str], np.ndarray]:
     """100 uint8 60x80 images from a numpy seed (a random colour per image
     plus noise), a test CSV with zero-padded numeric ids, and the
     decoded-image cache ``cli predict`` reads."""
-    rng = np.random.default_rng(0)
-    colour = rng.uniform(0, 255, size=(N_IMAGES, 1, 1, 3))
-    noise = rng.normal(0, 40, size=(N_IMAGES, *NATIVE, 3))
-    images = np.clip(np.round(colour + noise), 0, 255).astype(np.uint8)
+    images = synthetic_images(N_IMAGES, seed=0)
     ids = [f"{i:04d}" for i in range(N_IMAGES)]
     with open(cfg.test_csv, "w") as f:
         f.write("id,predict\n" + "".join(f"{i},0\n" for i in ids))
@@ -245,27 +655,16 @@ def synthetic_test_set(cfg) -> tuple[list[str], np.ndarray]:
 
 
 def fold_models(cfg, device) -> list[torch.nn.Module]:
-    """Fold models from torch.Generator seeds, layer scale set to U(0.3, 0.7)
-    instead of its 1e-6 init so every block changes its input."""
-    models = []
-    for seed in FOLD_SEEDS:
-        gen = torch.Generator().manual_seed(seed)
-        model = create_model(cfg, generator=gen).module
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name.endswith(".gamma"):
-                    p.copy_(0.3 + 0.4 * torch.rand(p.shape, generator=gen))
-        models.append(model.to(device))
-    return models
+    return [seeded_model(cfg, seed).module.to(device) for seed in FOLD_SEEDS]
 
 
-def run_slice(kernels: list[dict]) -> dict:
-    """Phase 3: the predict slice on the card, then its f32 plain reference."""
+def run_slice() -> dict:
+    """Phase 4: the predict slice on the card, then its f32 plain reference."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return _run_slice(kernels, tmp)
+        return _run_slice(tmp)
 
 
-def _run_slice(kernels: list[dict], tmp: str) -> dict:
+def _run_slice(tmp: str) -> dict:
     cfg = load_config(os.path.join(REPO, "configs", "v4.json"), [
         f"test_csv={tmp}/test.csv", f"test_dir={tmp}/test",
         f"cache_dir={tmp}/cache", f"model_save_path={tmp}/models",
@@ -280,9 +679,7 @@ def _run_slice(kernels: list[dict], tmp: str) -> dict:
         torch.save(model.state_dict(), cli.checkpoint_path(cfg.model_save_path, fold))
 
     # Main path, through the user's entry point. Counters from 0 right before.
-    wrappers = {"dwconv": depthwise_conv7x7, "block_mlp": block_mlp, "gelu": gelu}
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     cli.main(["predict", "--config", os.path.join(REPO, "configs", "v4.json"),
               "--folds", "1,2", f"test_csv={cfg.test_csv}",
@@ -291,16 +688,15 @@ def _run_slice(kernels: list[dict], tmp: str) -> dict:
               f"submission_path={cfg.submission_path}"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_launches()
     forwards = len(FOLD_SEEDS) * -(-N_IMAGES // 64)
     per_forward = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
-                   "gelu": DEPTHS[3]}
+                   "gelu": DEPTHS[3], "dwconv_bwd": 0, "block_mlp_bwd": 0,
+                   "gelu_bwd": 0}
     print(f"cli predict: {cli_s:.3f} s, launches {launches}, "
           f"{forwards} forwards", flush=True)
     for k, n in per_forward.items():
         require(launches[k] == n * forwards, f"{k}: {launches[k]} launches")
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
     with open(cfg.submission_path) as f:
         csv_rows = f.read().splitlines()
     require(csv_rows[0] == "id,predict" and len(csv_rows) == N_IMAGES + 1,
@@ -369,7 +765,11 @@ def main() -> int:
           flush=True)
 
     kernels = check_kernels()
-    stats = run_slice(kernels)
+    train = run_train(kernels)
+    print(f"train slice: {train['images_per_s']} images/s, peak memory "
+          f"{train['peak_mem_gib']} GiB, on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    stats = run_slice()
     print(f"slice: {stats['images_per_s']} images/s ({N_IMAGES} images x "
           f"{len(FOLD_SEEDS)} folds x 4 views in {stats['wall_s']} s), peak "
           f"memory {stats['peak_mem_gib']} GiB, on {smi}", flush=True)

@@ -1,4 +1,4 @@
-"""ConvNeXt family, channels-last, inference forward.
+"""ConvNeXt family, channels-last, forward for inference and training.
 
 Port of ``image_classification_tpu/models/convnext.py``: patchify stem (4x4/4
 conv + LN), four stages of blocks (7x7 depthwise conv -> LN -> 4x MLP with
@@ -12,7 +12,10 @@ and a global-average-pool -> LN -> Linear head. Parameter names are timm's
 In each block the depthwise conv runs ``ops.depthwise_conv7x7``; the tail runs
 the fused ``ops.block_mlp`` where ``block_mlp_available(C)`` (stages 0-2 of
 ConvNeXt-B), else LN, ``torch.matmul``, ``ops.gelu``, ``torch.matmul``, layer
-scale and residual, in the working dtype like the flax layers.
+scale and residual, in the working dtype like the flax layers. Under autograd
+the three kernel ops run as ``torch.autograd.Function``s whose backwards are
+kernels too; the stem, downsamples, LayerNorms, pooling, the stage-3 matmuls
+(left to XLA in the JAX package as well) and the heads are plain autograd.
 """
 
 from __future__ import annotations

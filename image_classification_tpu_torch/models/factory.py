@@ -31,7 +31,8 @@ def _family(name: str) -> str:
 
 @dataclass
 class ModelBundle:
-    """A constructed model plus what the predict path needs to drive it."""
+    """A constructed model plus what the train and predict steps need to
+    drive it."""
 
     name: str
     module: nn.Module
@@ -43,13 +44,18 @@ def create_model(cfg, model_name: str | None = None,
                  generator: torch.Generator | None = None) -> ModelBundle:
     """Build the configured model on the CPU, in f32, with flax's
     initialisation drawn from ``generator`` (seeded from ``cfg.seed`` when
-    omitted). Move it with ``.to(device)``."""
+    omitted). Move it with ``.to(device)``. The module has no dropout or
+    batch statistics, so its train and eval modes compute the same."""
     name = model_name or cfg.model_name
     family = _family(name)
     if family != "convnext":
         raise NotImplementedError(
             f"{name}: only ConvNeXt is ported; EfficientNet and ViT are "
             "ROADMAP queue A, item 12")
+    if cfg.drop_path_rate > 0 or cfg.drop_rate > 0:
+        raise NotImplementedError(
+            "drop_path_rate > 0 and drop_rate > 0 (stochastic depth, head "
+            "dropout) are not ported; V4 uses neither")
     if cfg.gelu_approximate:
         raise NotImplementedError("tanh GELU (gelu_approximate=true) is not "
                                   "ported; the block-tail kernel is exact GELU")

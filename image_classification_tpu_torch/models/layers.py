@@ -3,8 +3,9 @@
 
 Every module keeps f32 parameters (or the bf16 ones ``infer/predict.py``
 casts to) and casts them to the activation's dtype at use. Stochastic depth
-(``DropPath``) is the identity at inference, the only mode ported so far, so
-it has no module here.
+(``DropPath``) is not ported: it is the identity at inference, and
+``models/factory.py:create_model`` refuses a configuration that trains with
+it (V4 does not).
 """
 
 from __future__ import annotations

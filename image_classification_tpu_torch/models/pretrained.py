@@ -9,6 +9,12 @@ leaves out, map to ``aux_head{i}.{weight,bias}``. The backbone keys and
 tensors equal ``export_convnext``'s: flax conv kernels HWIO become OIHW (the
 depthwise ``(7, 7, 1, C)`` becomes ``(C, 1, 7, 7)``) and Dense ``(in, out)``
 becomes Linear ``(out, in)``. Depths are read from the tree.
+
+``train_state_from_jax`` carries a whole train state the same way: the
+parameters, the EMA shadow and Adam's ``mu`` and ``nu`` (trees shaped like
+the parameters) become tensors aligned with ``model.named_parameters()``,
+and the counters become host integers, so both frameworks can start from
+one non-trivial optimizer state.
 """
 
 from __future__ import annotations
@@ -67,6 +73,8 @@ def _backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
 
 
 def convnext_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's state dict for the flax ``params`` tree (any tree of that
+    shape: parameters, EMA, Adam moments)."""
     if "backbone" in params:
         sd = {f"backbone.{k}": v for k, v in _backbone(params["backbone"]).items()}
         i = 0
@@ -78,3 +86,28 @@ def convnext_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.T
     else:
         sd = _backbone(params)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def train_state_from_jax(model: torch.nn.Module, params: Mapping[str, Any],
+                         ema: Mapping[str, Any] | None, mu: Mapping[str, Any],
+                         nu: Mapping[str, Any], count: int, step: int):
+    """The port's ``TrainState`` for the JAX package's (params, EMA, Adam
+    mu/nu, Adam count, step): ``params`` load into ``model`` with
+    ``strict=True``; the other trees go to the device of its parameters."""
+    from image_classification_tpu_torch.train.train_state import TrainState
+
+    model.load_state_dict(convnext_state_dict_from_jax(params), strict=True)
+    names = [n for n, _ in model.named_parameters()]
+    device = next(model.parameters()).device
+
+    def aligned(tree):
+        sd = convnext_state_dict_from_jax(tree)
+        if set(sd) != set(names):
+            raise ValueError("tree does not match the model's parameters")
+        # copies: the step updates these in place, and the arrays may be
+        # the caller's (or views of JAX buffers)
+        return [sd[n].to(device, copy=True) for n in names]
+
+    return TrainState(step=int(step), model=model, mu=aligned(mu),
+                      nu=aligned(nu), count=int(count),
+                      ema=None if ema is None else aligned(ema))

@@ -2,29 +2,51 @@
 
 A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its launches in a plain
-integer attribute, ``<wrapper>.launches``.
+integer attribute, ``<wrapper>.launches``. The forward ops (``block_mlp``,
+``depthwise_conv7x7``, ``gelu``) are differentiable: under autograd their
+backwards call the backward wrappers (``*_bwd``).
 """
 
 from image_classification_tpu_torch.ops.block_mlp import (
     block_mlp,
     block_mlp_available,
+    block_mlp_bwd,
+    block_mlp_bwd_reference,
+    block_mlp_fwd,
+    block_mlp_fwd_reference,
     block_mlp_reference,
 )
 from image_classification_tpu_torch.ops.dwconv import (
     depthwise_conv7x7,
+    depthwise_conv7x7_bwd,
+    depthwise_conv7x7_bwd_reference,
     depthwise_conv7x7_reference,
 )
-from image_classification_tpu_torch.ops.gelu import gelu, gelu_reference
+from image_classification_tpu_torch.ops.gelu import (
+    gelu,
+    gelu_bwd,
+    gelu_grad_reference,
+    gelu_reference,
+)
 
-KERNEL_WRAPPERS = (depthwise_conv7x7, block_mlp, gelu)
+KERNEL_WRAPPERS = (depthwise_conv7x7, block_mlp, gelu,
+                   depthwise_conv7x7_bwd, block_mlp_bwd, gelu_bwd)
 
 __all__ = [
     "KERNEL_WRAPPERS",
     "block_mlp",
     "block_mlp_available",
+    "block_mlp_bwd",
+    "block_mlp_bwd_reference",
+    "block_mlp_fwd",
+    "block_mlp_fwd_reference",
     "block_mlp_reference",
     "depthwise_conv7x7",
+    "depthwise_conv7x7_bwd",
+    "depthwise_conv7x7_bwd_reference",
     "depthwise_conv7x7_reference",
     "gelu",
+    "gelu_bwd",
+    "gelu_grad_reference",
     "gelu_reference",
 ]

@@ -7,9 +7,9 @@ at import), writes under ``image_classification_tpu_torch/_build/`` (listed in
 source rebuilds and an unchanged one loads in milliseconds. It needs the CUDA
 toolkit; nothing here runs on a machine without it.
 
-Pointer and stream arguments are ``ctypes.c_void_p``; each entry point returns
-``cudaGetLastError()`` after its launches, and :func:`check` raises on a
-non-zero code.
+Pointer and stream arguments are ``ctypes.c_void_p``; each entry point that
+launches returns ``cudaGetLastError()`` after its launches, and :func:`check`
+raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -38,10 +38,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
+_F = ctypes.c_float
+# name -> (argtypes, restype); entry points that launch return a CUDA error
+# code, the others a size.
 _SIGNATURES = {
-    "ic_dwconv7x7_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ic_block_mlp_fwd": [_P] * 12 + [ctypes.c_int64, _I, _I, ctypes.c_float,
-                                     _I, _P],
+    "ic_dwconv7x7_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "ic_dwconv7x7_bwd_groups": ([_I, _I, _I, _I], _I),
+    "ic_dwconv7x7_bwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "ic_block_mlp_fwd": ([_P] * 14 + [_I64, _I, _I, _F, _I, _P], _I),
+    "ic_block_mlp_bwd_scratch": ([_I64, _I, _I, _I], _I64),
+    "ic_block_mlp_bwd": ([_P] * 22 + [_I64, _I, _I, _F, _I, _P], _I),
 }
 
 
@@ -96,10 +103,10 @@ def library() -> ctypes.CDLL:
     """The built and loaded kernel library (built on first call)."""
     so, _ = build()
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     lib.ic_error_string.argtypes = [ctypes.c_int]
     lib.ic_error_string.restype = ctypes.c_char_p
     return lib

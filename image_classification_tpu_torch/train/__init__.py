@@ -1,1 +1,1 @@
-"""Predict-side steps (the train step is not ported yet)."""
+"""Train and eval steps, loss, optimizer and schedule of the port."""

@@ -1,0 +1,68 @@
+"""Clip + AdamW + EMA in one pass over the parameter list, port of
+``image_classification_tpu/train/fused.py:fused_adamw_ema``.
+
+The JAX version is one ``jax.tree.map`` that XLA fuses per leaf; here each
+step of the formula is one ``torch._foreach_*`` call over all parameters,
+applied in place to the parameters, ``mu``, ``nu`` and the EMA (plain
+PyTorch: the JAX version is XLA, not a Pallas kernel). Formula for formula:
+
+- clip: ``g *= where(gnorm < clip, 1, clip / gnorm)``, ``gnorm`` the global
+  L2 norm of the gradients;
+- adam: ``mu = b1*mu + (1-b1)*g``; ``nu = b2*nu + (1-b2)*g*g``;
+  ``u = (mu/(1-b1^c)) / (sqrt(nu/(1-b2^c)) + eps)`` with ``c = count+1``;
+- adamw: ``u += wd * p`` on every parameter; ``p -= lr(count) * u``, the
+  schedule read at the count before it advances;
+- EMA after the update: ``e = d*e + (1-d)*p``.
+
+The bias corrections and the LR are computed on the host in float32 from the
+host count; the gradient norm and the clip scale stay on the device, so the
+update never waits for the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from image_classification_tpu_torch.train.train_state import TrainState, ema_update
+
+_INT32_MAX = 2**31 - 1
+
+
+@torch.no_grad()
+def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
+                    tx, cfg) -> None:
+    """Apply one update to ``state`` in place (parameters, ``mu``, ``nu``,
+    EMA, ``count``). ``grads`` align with ``state.params()``; ``tx`` is
+    ``train/optim.py:build_optimizer``'s result."""
+    params = state.params()
+    b1, b2, eps, wd = tx.b1, tx.b2, tx.eps, tx.weight_decay
+    count_inc = min(state.count + 1, _INT32_MAX)   # optax.safe_increment
+    lr = tx.schedule(state.count)
+
+    if tx.gradient_clip_val > 0:
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        clip = torch.tensor(tx.gradient_clip_val, dtype=gnorm.dtype,
+                            device=gnorm.device)
+        gscale = torch.where(gnorm < clip, torch.ones_like(gnorm), clip / gnorm)
+        grads = torch._foreach_mul(grads, gscale)
+
+    f32 = np.float32
+    bc1 = float(f32(1.0) - f32(b1) ** f32(count_inc))
+    bc2 = float(f32(1.0) - f32(b2) ** f32(count_inc))
+
+    torch._foreach_mul_(state.mu, b1)
+    torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(state.nu, b2)
+    torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
+    denom = torch._foreach_div(state.nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    update = torch._foreach_div(state.mu, bc1)
+    torch._foreach_div_(update, denom)
+    torch._foreach_add_(update, params, alpha=wd)
+    torch._foreach_mul_(update, lr)
+    torch._foreach_sub_(params, update)
+    if state.ema is not None:
+        ema_update(state.ema, params, cfg.ema_decay)
+    state.count = count_inc

@@ -1,7 +1,16 @@
-"""The predict-side steps of ``image_classification_tpu/train/step.py``:
-``make_eval_views``, ``make_forward_views``, ``tta_num_views`` and
-``make_predict_step``. The train and eval steps are not ported yet (ROADMAP
-queue A, item 6).
+"""The train and eval steps and the predict-side steps of
+``image_classification_tpu/train/step.py``: ``make_train_step``,
+``make_eval_step``, ``make_eval_views``, ``make_forward_views``,
+``tta_num_views`` and ``make_predict_step``.
+
+The train step takes pre-augmented float images (``aug_enabled=false``); the
+device-side augmentation and in-batch mixing are not ported yet (ROADMAP
+queue A, item 5). Parity notes, as in the JAX module: microbatch ``k`` holds
+rows ``k, k+accum, ...`` of the batch; the microbatch gradients are summed
+(``grad_accum_reduction='sum'``, the reference's AMP path) or averaged; the
+loss is the mean of the microbatch losses and the accuracy is taken on the
+main head against the integer labels; EMA updates once per optimizer step.
+Metrics come back as device tensors: nothing in a step waits for the card.
 """
 
 from __future__ import annotations
@@ -11,10 +20,101 @@ from typing import Callable
 import torch
 
 from image_classification_tpu_torch.aug.pipeline import eval_preprocess
+from image_classification_tpu_torch.train.fused import fused_adamw_ema
+from image_classification_tpu_torch.train.loss import smoothed_cross_entropy
+from image_classification_tpu_torch.train.train_state import TrainState
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _main_head(outputs) -> torch.Tensor:
+    return outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+
+
+def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
+    """Build ``train_step(state, batch) -> (state, metrics)``: one optimizer
+    step over ``cfg.gradient_accumulation_steps`` microbatches, then the
+    fused clip + AdamW + EMA update in place. ``batch`` holds 'image', float
+    (B, H, W, 3) already preprocessed, and 'label' int (B,), on the model's
+    device; ``tx`` is ``train/optim.py:build_optimizer``'s result."""
+    if cfg.aug_enabled:
+        raise NotImplementedError(
+            "aug_enabled=true: the device-side augmentation and in-batch "
+            "mixing are not ported yet (ROADMAP queue A, item 5); pass "
+            "pre-augmented images with aug_enabled=false")
+
+    def train_step(state: TrainState, batch: dict):
+        grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
+                                          batch["image"], batch["label"])
+        fused_adamw_ema(grads, state, tx=tx, cfg=cfg)
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
+                     images: torch.Tensor, labels: torch.Tensor):
+    """The gradient half of the train step: ``(grads, metrics)``, the
+    gradients aligned with ``model.parameters()`` and reduced over the
+    ``cfg.gradient_accumulation_steps`` strided microbatches."""
+    accum = cfg.gradient_accumulation_steps
+    if images.shape[0] % accum:
+        raise ValueError(f"batch {images.shape[0]} is not divisible by "
+                         f"gradient_accumulation_steps={accum}")
+    params = list(model.parameters())
+    grads = None
+    losses, correct = [], []
+    for k in range(accum):
+        imgs, tgts = images[k::accum], labels[k::accum]
+        outputs = model(imgs)
+        loss = criterion(outputs, tgts)
+        g = torch.autograd.grad(loss, params)
+        grads = list(g) if grads is None else torch._foreach_add(grads, g)
+        losses.append(loss.detach())
+        correct.append(_main_head(outputs).detach().argmax(dim=-1)
+                       == tgts.reshape(-1))
+    if cfg.grad_accum_reduction == "mean":
+        torch._foreach_div_(grads, float(accum))
+    return grads, {"loss": torch.stack(losses).mean(),
+                   "accuracy": torch.cat(correct).float().mean()}
+
+
+def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
+    """Build ``eval_step(state, batch) -> metrics`` with masked sums, so the
+    padding rows of a last batch count for nothing. The deep-supervised
+    model is scored on its main head with label-smoothed CE, on the EMA
+    weights when ``use_ema`` and ``cfg.use_ema``. ``batch``: 'image' uint8
+    (B, h, w, 3) and 'label' (B,) on the device, 'mask' (B,) bool."""
+    dtype = compute_dtype(cfg)
+    k = cfg.num_classes
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        params = state.eval_params(use_ema=use_ema and cfg.use_ema)
+        images = eval_preprocess(
+            batch["image"], tuple(cfg.image_size), tuple(cfg.mean),
+            tuple(cfg.std), dtype=dtype, round_uint8=cfg.eval_resize_uint8,
+        )
+        outputs = torch.func.functional_call(bundle.module, params, (images,))
+        logits = _main_head(outputs)
+        labels = batch["label"].long()
+        mask = torch.as_tensor(batch["mask"]).to(logits.device, torch.float32)
+        per = smoothed_cross_entropy(logits, labels, cfg.label_smoothing,
+                                     reduction="none")
+        preds = logits.argmax(dim=-1)
+        cm = torch.zeros(k * k, dtype=torch.float32, device=logits.device)
+        cm.index_add_(0, labels * k + preds, mask)
+        return {
+            "loss_sum": (per * mask).sum(),
+            "correct": ((preds == labels) * mask).sum(),
+            "count": mask.sum(),
+            "confusion": cm.reshape(k, k),
+        }
+
+    return eval_step
 
 
 def make_eval_views(cfg, tta: Callable | None = None) -> Callable:
@@ -41,8 +141,7 @@ def make_forward_views(model: torch.nn.Module, n_views: int = 1) -> Callable:
 
     @torch.no_grad()
     def forward(x_views: torch.Tensor) -> torch.Tensor:
-        outputs = model(x_views)
-        logits = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+        logits = _main_head(model(x_views))
         probs = torch.softmax(logits.float(), dim=-1)
         if n_views == 1:
             return probs

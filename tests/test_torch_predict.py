@@ -171,7 +171,7 @@ def test_two_fold_ensemble_matches_jax_and_csv_bytes(tmp_path, monkeypatch):
 
     m = Manifest.from_csv(str(csv_path), is_test=True)
     loader = DataLoader(ArraySource(images), m, batch_size=4,
-                        sampler=SequentialSampler(n), pad_last=True)
+                        sampler=SequentialSampler(n), pad_last=True, device="cpu")
     ids, preds, probs = predict_ensemble([port_model(p1), port_model(p2)], loader, cfg)
 
     assert ids == list(jids) == [str(i) for i in range(n)]
@@ -217,7 +217,7 @@ def test_cli_predict_writes_the_ensemble_submission(tmp_path):
     cli.main(["predict", "--device", "cpu", "--folds", "1,2", *overrides])
 
     loader = DataLoader(ArraySource(images), Manifest.from_csv(cfg.test_csv, is_test=True),
-                        batch_size=4)
+                        batch_size=4, device="cpu")
     ids_d, preds, _ = predict_ensemble(models, loader, cfg)
     write_submission(ids_d, preds, str(tmp_path / "direct.csv"))
     assert (tmp_path / "sub.csv").read_bytes() == (tmp_path / "direct.csv").read_bytes()
