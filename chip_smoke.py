@@ -1,21 +1,27 @@
 """On-card smoke test of the PyTorch port. It builds the port's kernels and
 holds each one against its plain PyTorch version on the card (forward
-kernels at the predict slice's shapes, backward kernels at the train step's),
-then runs the two slices through their entry points and checks each against
-the same work through the plain versions in f32:
+kernels at the predict slice's shapes, backward kernels at the train step's,
+the augmentation's warp at its own), then runs the slices through their
+entry points and checks each against the same work through the plain
+versions in f32:
 
+* aug: ``train_augment`` + ``mixup_cutmix_batch`` on 32 uint8 60x80 images,
+  at V4's probabilities and with every probability 1, against the same draws
+  on the host; then its rate alone;
 * train: ``make_train_step`` of ConvNeXt-B with deep supervision, 44
-  classes, 260x260, bf16, batch 32 with gradient accumulation 2, clip, AdamW
-  and EMA (``configs/v4.json`` with ``aug_enabled=false``), then an eval
-  step on the EMA weights;
+  classes, 260x260, bf16, batch 32 of uint8 60x80 images with the device-side
+  augmentation and MixUp/CutMix, gradient accumulation 2, clip, AdamW and EMA
+  (``configs/v4.json`` as it is); then, timing only, the same batches
+  augmented beforehand through the step with the aug off; then an eval step
+  on the EMA weights;
 * predict: ``cli predict``, 2 fold models, scale4 TTA.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and Triton; imports no JAX. It
 exits non-zero, before printing any result, when there is no card or any
-phase fails. It prints a ``torch.profiler`` table of one train step. The
-last line is
+phase fails. It prints ``torch.profiler`` tables of one aug batch and of one
+train step. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -40,7 +46,9 @@ from image_classification_tpu_torch.data import (
     SequentialSampler,
 )
 from image_classification_tpu_torch.data.source import decode_cache_key
-from image_classification_tpu_torch.aug.pipeline import eval_preprocess
+from image_classification_tpu_torch.aug.draws import draws_to
+from image_classification_tpu_torch.aug.geometry import draw_geometry, source_coords
+from image_classification_tpu_torch.aug.pipeline import aug_configs_from, train_augment
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
@@ -61,12 +69,16 @@ from image_classification_tpu_torch.ops import (
     gelu_bwd,
     gelu_grad_reference,
     gelu_reference,
+    warp,
+    warp_reference,
 )
 from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
 from image_classification_tpu_torch.train.loss import build_criterion
 from image_classification_tpu_torch.train.optim import build_optimizer
 from image_classification_tpu_torch.train.step import (
     accumulate_grads,
+    draw_train_step,
+    make_batch_augment,
     make_eval_step,
     make_train_step,
 )
@@ -132,11 +144,39 @@ PROB_TOL = 2e-3
 # parameter by lr * (1-b1) / sqrt((1-b2) / (1-b2^(c+1))) * sign(g) (1.83 lr
 # at the checked count) plus the decay: elements whose gradient is near zero
 # may step either way, so the update is held in relative L2 and the
-# parameters and EMA to 4 lr of each other.
+# parameters and EMA to 4 lr of each other. Those numbers were taken with
+# pre-augmented inputs; with the aug and mix on, the card's inputs are the
+# bf16 aug of the host's f32 one (~0.6 grey levels apart on average), and
+# the first run measured loss rel err 2.1e-5, cosine 0.99979, gradient rel L2
+# 0.0124, update rel L2 0.090: inside the same bounds, by 2.2x or more.
 TRAIN_LOSS_REL_TOL = 1e-3
 GRAD_MIN_COS = 0.999
 GRAD_REL_L2 = 0.03
 UPDATE_REL_L2 = 0.2
+# The aug slice: the batch the aug check and the aug rate run on, and every
+# probability of the config set to 1, so that each branch of each op runs.
+N_AUG = 32
+AUG_RATE_ITERS = 50
+ALL_ONES = dict(hflip_prob=1.0, vflip_prob=1.0, ssr_prob=1.0,
+                distortion_prob=1.0, noise_blur_prob=1.0,
+                color_jitter_prob=1.0, color_shift_prob=1.0,
+                random_erasing_prob=1.0, mix_prob=1.0)
+# Aug in bf16 on the card against f32 on the host, same draws, in grey
+# levels (0..255). bf16 keeps 8 bits, so one rounding of a value in
+# [128, 256) moves it by up to 0.5, and the chain rounds at every op (~40 of
+# them in an HSV round trip); hue in bf16 has steps of 2^-9 of the circle
+# near 1, ~3 grey levels of a saturated colour. The first run on an H100
+# measured max 12.86 / mean 0.562 at V4's probabilities and max 19.80 / mean
+# 0.753 with all of them 1 (fixed seeds and orders: the numbers repeat); the
+# bounds are 2x the larger.
+AUG_MAX_GREY = 40.0
+AUG_MEAN_GREY = 1.5
+# Soft labels are f32 on both sides from the same lambdas and boxes.
+LABEL_TOL = 1e-6
+# warp: ~14 FLOP to fold a pixel's coordinates and build its four hats, and
+# 8 per channel (two taps per row, two rows, their weighting).
+WARP_FLOPS_PER_PIXEL = 14
+WARP_FLOPS_PER_CHANNEL = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -169,6 +209,23 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` a call over ``iters`` calls, from
+    torch.profiler: the kernels' own time. For a kernel of a few µs the
+    CUDA-event mean of back-to-back calls is bounded by the host's launch
+    rate instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
 
 
 def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -261,10 +318,12 @@ KERNEL_META = {
                       "image_classification_tpu/ops/block_mlp.py:305"),
     "gelu_bwd": ("triton", "image_classification_tpu_torch/ops/gelu.py",
                  "image_classification_tpu/ops/gelu.py:109"),
+    "warp": ("cuda", "image_classification_tpu_torch/csrc/warp.cu",
+             "image_classification_tpu/ops/warp.py:68"),
 }
 WRAPPERS = {"dwconv": depthwise_conv7x7, "block_mlp": block_mlp, "gelu": gelu,
             "dwconv_bwd": depthwise_conv7x7_bwd, "block_mlp_bwd": block_mlp_bwd,
-            "gelu_bwd": gelu_bwd}
+            "gelu_bwd": gelu_bwd, "warp": warp}
 
 
 def reset_launches() -> None:
@@ -434,7 +493,58 @@ def check_kernels() -> list[dict]:
                       6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
             del x, dy, dx, ref
         torch.cuda.empty_cache()
+    check_warp(table, gen)
     return table.entries(KERNEL_META)
+
+
+def grid_sample_reflect(img: torch.Tensor, coords: torch.Tensor, dtype):
+    """One PyTorch call computing the warp: ``F.grid_sample`` on an NCHW
+    view, reflecting about the edge pixels' centres (``align_corners=True``),
+    which is reflect-101. Returns the call, on its inputs made beforehand."""
+    B, H, W, C = img.shape
+    grid = torch.stack([coords[..., 1] / (W - 1) * 2 - 1,
+                        coords[..., 0] / (H - 1) * 2 - 1], dim=-1).to(dtype)
+    nchw = img.permute(0, 3, 1, 2)
+    return lambda: torch.nn.functional.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="reflection",
+        align_corners=True).permute(0, 2, 3, 1)
+
+
+def check_warp(table: KernelTable, gen) -> None:
+    """The warp at the train step's shape in bf16, its coordinates from the
+    port's geometry with every probability 1 (flips, rotations and
+    distortions fold through the border), and at a small odd shape in f32
+    with coordinates far outside the image."""
+    cfg = load_config(os.path.join(REPO, "configs", "v4.json")).replace(**ALL_ONES)
+    g = aug_configs_from(cfg)["geometry"]
+    out_hw = tuple(cfg.image_size)
+    coords = source_coords(draw_geometry(gen, N_AUG, out_hw, g), NATIVE, out_hw, g)
+    img = torch.from_numpy(synthetic_images(N_AUG, seed=41)).cuda().to(torch.bfloat16)
+    y, ref = warp(img, coords), warp_reference(img, coords)
+    ulps = bf16_ulp_distance(y, ref)
+    require(ulps <= ULP_TOL, f"warp bf16: {ulps} ulps")
+    small = 128 + randn(gen, 3, 13, 17, 3, scale=60.0, dtype=torch.float32)
+    sc = torch.stack([torch.rand(3, 11, 19, generator=gen, device="cuda") * 60 - 20,
+                      torch.rand(3, 11, 19, generator=gen, device="cuda") * 80 - 30], -1)
+    err = (warp(small, sc) - warp_reference(small, sc)).abs().max().item()
+    lib_err = (grid_sample_reflect(small, sc, torch.float32)()
+               - warp_reference(small, sc)).abs().max().item()
+    print(f"warp f32 3x13x17x3 -> 11x19: max |kernel - plain| {err:.3g}, "
+          f"max |grid_sample - plain| {lib_err:.3g}", flush=True)
+    require(err <= 1e-4, f"warp f32 err {err}")
+    library = grid_sample_reflect(img, coords, torch.bfloat16)
+    print(f"warp device time a call (profiler, 20 calls): kernel "
+          f"{device_ms(lambda: warp(img, coords), 20):.4f} ms, F.grid_sample "
+          f"{device_ms(library, 20):.4f} ms", flush=True)
+    c = img.shape[-1]
+    table.add("warp", (tuple(img.shape), tuple(coords.shape)), 1,
+              (y.float() - ref.float()).abs().max().item(),
+              time_ms(lambda: warp(img, coords), 50),
+              time_ms(lambda: warp_reference(img, coords), 5),
+              time_ms(library, 50),
+              img.numel() * 2 + coords.numel() * 4 + y.numel() * 2,
+              coords.numel() // 2 * (WARP_FLOPS_PER_PIXEL + WARP_FLOPS_PER_CHANNEL * c),
+              FP32_FLOPS)
 
 
 # ---------------------------------------------------------------- train
@@ -448,13 +558,73 @@ def synthetic_images(n: int, seed: int) -> np.ndarray:
 
 
 def train_inputs(cfg, n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Images through the ported ``eval_preprocess`` (260x260, normalized,
-    f32, on the host) and labels from a numpy seed."""
-    images = eval_preprocess(torch.from_numpy(synthetic_images(n, seed)),
-                             tuple(cfg.image_size), tuple(cfg.mean),
-                             tuple(cfg.std))
+    """uint8 60x80 images and labels from a numpy seed, on the host."""
     labels = np.random.default_rng(seed + 1).integers(0, cfg.num_classes, n)
-    return images, torch.from_numpy(labels)
+    return torch.from_numpy(synthetic_images(n, seed)), torch.from_numpy(labels)
+
+
+def check_aug(cfg) -> dict:
+    """``train_augment`` + ``mixup_cutmix_batch`` on N_AUG images: bf16 with
+    the warp kernel on the card against f32 through the plain path on the
+    host, from the same draws, at V4's probabilities and with all of them 1.
+    Differences are in grey levels (Normalize's output scaled back)."""
+    images, labels = train_inputs(cfg, N_AUG, seed=61)
+    std = torch.tensor(cfg.std) * 255.0
+    stats = {}
+    for name, over in (("v4", {}), ("all ones", ALL_ONES)):
+        c = cfg.replace(**over)
+        gen = torch.Generator(device="cuda").manual_seed(62)
+        draws = draw_train_step(gen, tuple(images.shape), c)
+        card = make_batch_augment(c)({"image": images.cuda(), "label": labels.cuda()},
+                                     draws=draws)
+        host = make_batch_augment(c.replace(compute_dtype="float32"))(
+            {"image": images, "label": labels}, draws=draws_to(draws, "cpu"))
+        require(card[0].dtype == torch.bfloat16 and card[0].shape == host[0].shape,
+                f"aug output {card[0].dtype} {tuple(card[0].shape)}")
+        d = (card[0].float().cpu() - host[0]).abs() * std
+        lab = (card[1].cpu() - host[1]).abs().max().item()
+        stats[name] = (d.max().item(), d.mean().item())
+        p999 = d.flatten().kthvalue(int(0.999 * d.numel())).values.item()
+        print(f"aug + mix, {name} probabilities, bf16 card vs f32 host: max |d| "
+              f"{stats[name][0]:.4f} grey levels, mean {stats[name][1]:.5f}, "
+              f"99.9th percentile {p999:.4f}; soft labels max |d| {lab:.3g}",
+              flush=True)
+        require(bool(torch.isfinite(card[0]).all()), "non-finite aug output")
+        require(stats[name][0] <= AUG_MAX_GREY and stats[name][1] <= AUG_MEAN_GREY,
+                f"aug {name}: max/mean |d| {stats[name]} grey levels")
+        require(lab <= LABEL_TOL, f"soft labels differ by {lab}")
+    return stats
+
+
+def aug_rate(cfg) -> float:
+    """``train_augment`` alone on N_AUG uint8 images, draws included: host
+    clock over AUG_RATE_ITERS batches after one warm batch."""
+    aug = aug_configs_from(cfg)
+    images = train_inputs(cfg, N_AUG, seed=71)[0].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    train_augment(images, gen, aug)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AUG_RATE_ITERS):
+        train_augment(images, gen, aug)
+    torch.cuda.synchronize()
+    rate = AUG_RATE_ITERS * N_AUG / (time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_augment(images, gen, aug)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"aug: {rate:.2f} images/s (train_augment, batch {N_AUG}, "
+          f"{AUG_RATE_ITERS} batches, {N_AUG * 1e3 / rate:.3f} ms a batch); "
+          f"profiled batch: device kernel time {device_ms:.3f} ms in "
+          f"{sum(e.count for e in rows)} device activities", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:100]}", flush=True)
+    return rate
 
 
 def seeded_model(cfg, seed: int):
@@ -483,25 +653,30 @@ def rel_l2(a: list[torch.Tensor], b: list[torch.Tensor]) -> float:
 
 
 def check_train_step(cfg) -> dict:
-    """One optimizer step on REF_BATCH images, bf16 kernels on the card
-    against the f32 plain versions on the host, from the same state."""
+    """One optimizer step on REF_BATCH uint8 images, aug and mix on, bf16
+    kernels on the card against the f32 plain versions on the host, from the
+    same state and the same draws (made on the card)."""
     cfg32 = cfg.replace(compute_dtype="float32")
     tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
     start = int(STEPS_PER_EPOCH * cfg.epochs * cfg.gradient_accumulation_steps
                 * cfg.warmup_ratio)
     images, labels = train_inputs(cfg, REF_BATCH, seed=11)
+    draws = draw_train_step(torch.Generator(device="cuda").manual_seed(12),
+                            tuple(images.shape), cfg)
     runs = {}
     for name, c, device in (("card", cfg, "cuda"), ("host", cfg32, "cpu")):
         bundle = train_model(c, device)
         model = bundle.module
         crit = build_criterion(c)
-        x, y = images.to(device), labels.to(device)
-        grads, m = accumulate_grads(model, c, crit, x, y)
+        batch = {"image": images.to(device), "label": labels.to(device)}
+        d = draws_to(draws, device)
+        x, targets = make_batch_augment(c)(batch, draws=d)
+        grads, m = accumulate_grads(model, c, crit, x, targets, batch["label"])
         state = create_train_state(model)
         state.count = state.step = start
         before = [p.detach().clone() for p in state.params()]
         step = make_train_step(bundle, c, tx, crit)
-        state, m2 = step(state, {"image": x, "label": y})
+        state, m2 = step(state, batch, draws=d)
         runs[name] = {
             "loss": float(m["loss"]), "loss2": float(m2["loss"]),
             "grads": [g.float().cpu() for g in grads],
@@ -572,14 +747,21 @@ def profile_train_step(step, state, batches, step_wall_ms: float) -> float:
 def run_train(kernels: list[dict]) -> dict:
     """Phase 3: the train slice on the card, then an eval step on the EMA
     weights."""
-    cfg = load_config(os.path.join(REPO, "configs", "v4.json"), ["aug_enabled=false"])
+    cfg = load_config(os.path.join(REPO, "configs", "v4.json"))
     require(cfg.batch_size == 32 and cfg.gradient_accumulation_steps == 2,
             "configs/v4.json no longer trains in batches of 32 with accumulation 2")
+    require(cfg.aug_enabled and cfg.mixup_alpha > 0 and cfg.cutmix_alpha > 0,
+            "configs/v4.json no longer trains with aug and MixUp/CutMix")
     check = check_train_step(cfg.replace(batch_size=REF_BATCH))
 
     bundle = train_model(cfg, "cuda")
     tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
-    step = make_train_step(bundle, cfg, tx, build_criterion(cfg))
+    train_step = make_train_step(bundle, cfg, tx, build_criterion(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def step(state, batch):
+        return train_step(state, batch, generator=gen)
+
     state = create_train_state(bundle.module)
     n = TRAIN_WARMUP + TRAIN_STEPS + 2
     images, labels = train_inputs(cfg, n * cfg.batch_size, seed=21)
@@ -610,15 +792,18 @@ def run_train(kernels: list[dict]) -> dict:
     accum = cfg.gradient_accumulation_steps
     per_step = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
                 "gelu": DEPTHS[3]}
+    want = {"warp": TRAIN_STEPS}     # one warp of the whole batch a step
     for k, n_fwd in per_step.items():
-        for name in (k, f"{k}_bwd"):
-            want = n_fwd * accum * TRAIN_STEPS
-            require(launches[name] == want, f"{name}: {launches[name]} launches "
-                    f"in {TRAIN_STEPS} steps, expected {want}")
+        want[k] = want[f"{k}_bwd"] = n_fwd * accum * TRAIN_STEPS
+    for name, n in want.items():
+        require(launches[name] == n, f"{name}: {launches[name]} launches "
+                f"in {TRAIN_STEPS} steps, expected {n}")
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     device_ms = profile_train_step(step, state, batches[-2:],
                                    wall * 1e3 / TRAIN_STEPS)
+    aug_off_ips = train_rate_without_aug(bundle, cfg, tx, state,
+                                         batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS])
 
     # an eval step on the EMA weights, 64 images with 4 padding rows
     eval_step = make_eval_step(bundle, cfg)
@@ -634,7 +819,31 @@ def run_train(kernels: list[dict]) -> dict:
     require(np.isfinite(metrics["loss"]), "non-finite eval loss")
     require(int(metrics["confusion"].sum()) == 60, "eval counted padding rows")
     return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall,
-            "peak_mem_gib": peak_gib, "device_ms": device_ms, **check}
+            "aug_off_images_per_s": aug_off_ips, "peak_mem_gib": peak_gib,
+            "device_ms": device_ms, **check}
+
+
+def train_rate_without_aug(bundle, cfg, tx, state, batches) -> float:
+    """The timed batches augmented and mixed beforehand, then the same number
+    of steps with ``aug_enabled=false`` on them (integer labels): the train
+    rate without the aug on the same host in the same run, which the host's
+    speed, different from call to call, does not confound. Timing only."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    augment = make_batch_augment(cfg)
+    pre = [{"image": augment(b, generator=gen)[0], "label": b["label"]}
+           for b in batches]
+    off = cfg.replace(aug_enabled=False)
+    step = make_train_step(bundle, off, tx, build_criterion(off))
+    state, _ = step(state, pre[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in pre:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    rate = len(pre) * cfg.batch_size / (time.perf_counter() - t0)
+    print(f"train with the aug off (the same batches augmented beforehand): "
+          f"{rate:.2f} images/s", flush=True)
+    return rate
 
 
 def synthetic_test_set(cfg) -> tuple[list[str], np.ndarray]:
@@ -692,7 +901,7 @@ def _run_slice(tmp: str) -> dict:
     forwards = len(FOLD_SEEDS) * -(-N_IMAGES // 64)
     per_forward = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
                    "gelu": DEPTHS[3], "dwconv_bwd": 0, "block_mlp_bwd": 0,
-                   "gelu_bwd": 0}
+                   "gelu_bwd": 0, "warp": 0}
     print(f"cli predict: {cli_s:.3f} s, launches {launches}, "
           f"{forwards} forwards", flush=True)
     for k, n in per_forward.items():
@@ -765,8 +974,13 @@ def main() -> int:
           flush=True)
 
     kernels = check_kernels()
+    v4 = load_config(os.path.join(REPO, "configs", "v4.json"))
+    check_aug(v4)
+    aug_ips = aug_rate(v4)
     train = run_train(kernels)
-    print(f"train slice: {train['images_per_s']} images/s, peak memory "
+    print(f"aug slice: {aug_ips} images/s; train slice (aug and mix on): "
+          f"{train['images_per_s']} images/s (aug off, same run: "
+          f"{train['aug_off_images_per_s']}), peak memory "
           f"{train['peak_mem_gib']} GiB, on {smi}", flush=True)
     torch.cuda.empty_cache()
     stats = run_slice()

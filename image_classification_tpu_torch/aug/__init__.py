@@ -1,1 +1,2 @@
-"""Eval preprocessing (the training augmentation is not ported yet)."""
+"""Device-side training augmentation, in-batch MixUp/CutMix and eval
+preprocessing."""

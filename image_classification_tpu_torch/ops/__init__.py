@@ -4,7 +4,8 @@ A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``. The forward ops (``block_mlp``,
 ``depthwise_conv7x7``, ``gelu``) are differentiable: under autograd their
-backwards call the backward wrappers (``*_bwd``).
+backwards call the backward wrappers (``*_bwd``). ``warp`` (the augmentation's
+bilinear resampling) is forward only.
 """
 
 from image_classification_tpu_torch.ops.block_mlp import (
@@ -28,9 +29,10 @@ from image_classification_tpu_torch.ops.gelu import (
     gelu_grad_reference,
     gelu_reference,
 )
+from image_classification_tpu_torch.ops.warp import warp, warp_reference
 
 KERNEL_WRAPPERS = (depthwise_conv7x7, block_mlp, gelu,
-                   depthwise_conv7x7_bwd, block_mlp_bwd, gelu_bwd)
+                   depthwise_conv7x7_bwd, block_mlp_bwd, gelu_bwd, warp)
 
 __all__ = [
     "KERNEL_WRAPPERS",
@@ -49,4 +51,6 @@ __all__ = [
     "gelu_bwd",
     "gelu_grad_reference",
     "gelu_reference",
+    "warp",
+    "warp_reference",
 ]

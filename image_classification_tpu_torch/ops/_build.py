@@ -49,6 +49,7 @@ _SIGNATURES = {
     "ic_block_mlp_fwd": ([_P] * 14 + [_I64, _I, _I, _F, _I, _P], _I),
     "ic_block_mlp_bwd_scratch": ([_I64, _I, _I, _I], _I64),
     "ic_block_mlp_bwd": ([_P] * 22 + [_I64, _I, _I, _F, _I, _P], _I),
+    "ic_warp": ([_P] * 3 + [_I] * 6 + [_P], _I),
 }
 
 

@@ -42,8 +42,9 @@ def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
 
     if tx.gradient_clip_val > 0:
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        clip = torch.tensor(tx.gradient_clip_val, dtype=gnorm.dtype,
-                            device=gnorm.device)
+        # the clip value stays a Python scalar (cast to f32 by each op): a
+        # tensor made from it would be a host copy that waits for the card
+        clip = tx.gradient_clip_val
         gscale = torch.where(gnorm < clip, torch.ones_like(gnorm), clip / gnorm)
         grads = torch._foreach_mul(grads, gscale)
 

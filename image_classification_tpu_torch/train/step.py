@@ -3,23 +3,39 @@
 ``make_eval_step``, ``make_eval_views``, ``make_forward_views``,
 ``tta_num_views`` and ``make_predict_step``.
 
-The train step takes pre-augmented float images (``aug_enabled=false``); the
-device-side augmentation and in-batch mixing are not ported yet (ROADMAP
-queue A, item 5). Parity notes, as in the JAX module: microbatch ``k`` holds
-rows ``k, k+accum, ...`` of the batch; the microbatch gradients are summed
-(``grad_accum_reduction='sum'``, the reference's AMP path) or averaged; the
-loss is the mean of the microbatch losses and the accuracy is taken on the
-main head against the integer labels; EMA updates once per optimizer step.
-Metrics come back as device tensors: nothing in a step waits for the card.
+With ``aug_enabled=true`` the train step takes uint8 images from the loader
+and runs the device-side augmentation, then in-batch MixUp/CutMix when
+``mixup_alpha > 0 or cutmix_alpha > 0``; with ``aug_enabled=false`` it takes
+pre-augmented float images. Its random draws come from a ``torch.Generator``
+on the model's device, or ready-made (:func:`draw_train_step`; the tests
+feed the JAX package's). Parity notes, as in the JAX module: microbatch
+``k`` holds rows ``k, k+accum, ...`` of the batch; the microbatch gradients
+are summed (``grad_accum_reduction='sum'``, the reference's AMP path) or
+averaged; the loss is the mean of the microbatch losses and the accuracy is
+taken on the main head against the integer labels from before the mix; EMA
+updates once per optimizer step. Metrics come back as device tensors:
+nothing in a step waits for the card.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
-from image_classification_tpu_torch.aug.pipeline import eval_preprocess
+from image_classification_tpu_torch.aug.mix import (
+    MixCfg,
+    MixDraws,
+    draw_mix,
+    mixup_cutmix_batch,
+)
+from image_classification_tpu_torch.aug.pipeline import (
+    AugDraws,
+    apply_train_augment,
+    aug_configs_from,
+    draw_train_augment,
+    eval_preprocess,
+)
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import smoothed_cross_entropy
 from image_classification_tpu_torch.train.train_state import TrainState
@@ -33,21 +49,74 @@ def _main_head(outputs) -> torch.Tensor:
     return outputs[0] if isinstance(outputs, (tuple, list)) else outputs
 
 
-def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
-    """Build ``train_step(state, batch) -> (state, metrics)``: one optimizer
-    step over ``cfg.gradient_accumulation_steps`` microbatches, then the
-    fused clip + AdamW + EMA update in place. ``batch`` holds 'image', float
-    (B, H, W, 3) already preprocessed, and 'label' int (B,), on the model's
-    device; ``tx`` is ``train/optim.py:build_optimizer``'s result."""
-    if cfg.aug_enabled:
-        raise NotImplementedError(
-            "aug_enabled=true: the device-side augmentation and in-batch "
-            "mixing are not ported yet (ROADMAP queue A, item 5); pass "
-            "pre-augmented images with aug_enabled=false")
+class StepDraws(NamedTuple):
+    aug: AugDraws
+    mix: MixDraws | None   # None when the config mixes nothing
 
-    def train_step(state: TrainState, batch: dict):
+
+def mix_config(cfg) -> MixCfg | None:
+    """The MixUp/CutMix config, or None when neither alpha is positive."""
+    if not (cfg.mixup_alpha > 0 or cfg.cutmix_alpha > 0):
+        return None
+    return MixCfg(mixup_alpha=cfg.mixup_alpha, cutmix_alpha=cfg.cutmix_alpha,
+                  prob=cfg.mix_prob, num_classes=cfg.num_classes)
+
+
+def draw_train_step(generator: torch.Generator, shape, cfg) -> StepDraws:
+    """Every random draw of one train step with ``aug_enabled=true`` for a
+    uint8 batch of ``shape`` (B, H, W, C): the augmentation's, then the
+    mix's, on ``generator``'s device."""
+    aug = aug_configs_from(cfg)
+    out_shape = (shape[0], *aug["image_size"], shape[-1])
+    mix = mix_config(cfg)
+    return StepDraws(draw_train_augment(generator, shape, aug),
+                     None if mix is None else draw_mix(generator, out_shape, mix))
+
+
+def make_batch_augment(cfg) -> Callable:
+    """``augment(batch, generator=None, draws=None) -> (images, targets)``:
+    the train step's input stage. With ``aug_enabled=true``: the
+    augmentation of the uint8 'image' batch, then MixUp/CutMix (soft f32
+    targets) when the config mixes, from ``draws`` or else fresh draws on
+    ``generator``. With ``aug_enabled=false``: the batch as it is."""
+    if not cfg.aug_enabled:
+        return lambda batch, *_: (batch["image"], batch["label"])
+    aug = aug_configs_from(cfg)
+    mix = mix_config(cfg)
+
+    def augment(batch: dict, generator: torch.Generator | None = None,
+                draws: StepDraws | None = None):
+        images_u8, labels = batch["image"], batch["label"]
+        if draws is None:
+            if generator is None:
+                raise ValueError("aug_enabled=true: pass a torch.Generator on "
+                                 "the model's device, or ready-made draws")
+            draws = draw_train_step(generator, tuple(images_u8.shape), cfg)
+        images = apply_train_augment(images_u8, draws.aug, aug)
+        if mix is None:
+            return images, labels
+        return mixup_cutmix_batch(images, labels, draws.mix, mix)
+
+    return augment
+
+
+def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
+    """Build ``train_step(state, batch, generator=None, draws=None) ->
+    (state, metrics)``: the input stage of :func:`make_batch_augment`, one
+    optimizer step over ``cfg.gradient_accumulation_steps`` microbatches,
+    then the fused clip + AdamW + EMA update in place. ``batch`` holds
+    'image' and 'label' int (B,) on the model's device: uint8 (B, h, w, 3)
+    with ``aug_enabled=true``, float (B, H, W, 3) already preprocessed with
+    ``aug_enabled=false``; ``tx`` is ``train/optim.py:build_optimizer``'s
+    result."""
+    augment = make_batch_augment(cfg)
+
+    def train_step(state: TrainState, batch: dict,
+                   generator: torch.Generator | None = None,
+                   draws: StepDraws | None = None):
+        images, targets = augment(batch, generator, draws)
         grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
-                                          batch["image"], batch["label"])
+                                          images, targets, batch["label"])
         fused_adamw_ema(grads, state, tx=tx, cfg=cfg)
         state.step += 1
         return state, metrics
@@ -56,10 +125,17 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
 
 
 def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
-                     images: torch.Tensor, labels: torch.Tensor):
+                     images: torch.Tensor, targets: torch.Tensor,
+                     labels: torch.Tensor | None = None):
     """The gradient half of the train step: ``(grads, metrics)``, the
     gradients aligned with ``model.parameters()`` and reduced over the
-    ``cfg.gradient_accumulation_steps`` strided microbatches."""
+    ``cfg.gradient_accumulation_steps`` strided microbatches. ``targets``
+    are what the loss takes (integer labels, or soft (B, classes) ones after
+    a mix); the accuracy counts argmax hits against the integer ``labels``
+    (default: ``targets``), which after a mix are the labels from before
+    it."""
+    if labels is None:
+        labels = targets
     accum = cfg.gradient_accumulation_steps
     if images.shape[0] % accum:
         raise ValueError(f"batch {images.shape[0]} is not divisible by "
@@ -68,14 +144,13 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
     grads = None
     losses, correct = [], []
     for k in range(accum):
-        imgs, tgts = images[k::accum], labels[k::accum]
-        outputs = model(imgs)
-        loss = criterion(outputs, tgts)
+        outputs = model(images[k::accum])
+        loss = criterion(outputs, targets[k::accum])
         g = torch.autograd.grad(loss, params)
         grads = list(g) if grads is None else torch._foreach_add(grads, g)
         losses.append(loss.detach())
         correct.append(_main_head(outputs).detach().argmax(dim=-1)
-                       == tgts.reshape(-1))
+                       == labels[k::accum].reshape(-1))
     if cfg.grad_accum_reduction == "mean":
         torch._foreach_div_(grads, float(accum))
     return grads, {"loss": torch.stack(losses).mean(),

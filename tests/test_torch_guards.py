@@ -20,6 +20,7 @@ from image_classification_tpu_torch.ops import (
     block_mlp,
     depthwise_conv7x7,
     gelu,
+    warp,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,4 +87,6 @@ def test_wrappers_take_the_plain_path_on_cpu(dtype):
                   torch.zeros(4 * c), torch.randn(c, 4 * c), torch.zeros(c),
                   torch.full((c,), 0.5))
     assert y.shape == rows.shape and y.dtype == dtype
+    out = warp(x[..., :3].contiguous(), torch.rand(2, 5, 6, 2) * 9)
+    assert out.shape == (2, 5, 6, 3) and out.dtype == dtype
     assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * len(KERNEL_WRAPPERS)

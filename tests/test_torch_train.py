@@ -332,7 +332,8 @@ def test_optimizer_refuses_what_is_not_ported():
     with pytest.raises(ValueError):
         build_optimizer(cfg.replace(optimizer="sgd"), 1e-3)
     with pytest.raises(NotImplementedError):
-        make_train_step(None, cfg.replace(aug_enabled=True), None, None)
+        make_train_step(None, cfg.replace(aug_enabled=True, use_randaugment=True),
+                        None, None)
     with pytest.raises(NotImplementedError):
         create_model(cfg.replace(model_name="convnext_atto", drop_path_rate=0.1))
     assert build_optimizer(cfg.replace(schedule="none"), 2e-3).schedule(7) == 2e-3
