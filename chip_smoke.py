@@ -1,8 +1,9 @@
 """On-card smoke test of the PyTorch port. It builds the port's kernels and
-holds each one against its plain PyTorch version on the card (forward
-kernels at the predict slice's shapes, backward kernels at the train step's,
-the augmentation's warp at its own), then runs the slices through their
-entry points and checks each against the same work through the plain
+holds each one against its plain PyTorch version on the card (at
+ConvNeXt-B's shapes: forward kernels at the predict slice's, backward
+kernels at the train step's; at ConvNeXt-L's train shapes, forward and
+backward; the augmentation's warp at its own), then runs the slices through
+their entry points and checks each against the same work through the plain
 versions in f32:
 
 * aug: ``train_augment`` + ``mixup_cutmix_batch`` on 32 uint8 60x80 images,
@@ -14,7 +15,15 @@ versions in f32:
   (``configs/v4.json`` as it is); then, timing only, the same batches
   augmented beforehand through the step with the aug off; then an eval step
   on the EMA weights;
-* predict: ``cli predict``, 2 fold models, scale4 TTA.
+* predict: ``cli predict``, 2 fold models, scale4 TTA;
+* train entry: ``cli train`` on ``configs/v4.json`` with
+  ``model_name=convnext_large`` (full width and depth), 2 folds of 2 epochs
+  over a synthetic 44-class set with a long tail, which writes the
+  checkpoints, ``metrics.jsonl`` and the submission; ConvNeXt-L's stage 0
+  takes the split depthwise backward and with it the wgrad-only kernel; then
+  ``cli predict`` on the saved checkpoints, which must reproduce the
+  submission; then the ConvNeXt-L train step alone, timed, and one step of
+  it on 4 images against the f32 host step.
 
     python3 chip_smoke.py
 
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -45,13 +55,15 @@ from image_classification_tpu_torch.data import (
     Manifest,
     SequentialSampler,
 )
-from image_classification_tpu_torch.data.source import decode_cache_key
+from image_classification_tpu_torch.data.source import decode_cache_key, save_decode_cache
+from image_classification_tpu_torch.data.splits import stratified_kfold
 from image_classification_tpu_torch.aug.draws import draws_to
 from image_classification_tpu_torch.aug.geometry import draw_geometry, source_coords
 from image_classification_tpu_torch.aug.pipeline import aug_configs_from, train_augment
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
+from image_classification_tpu_torch.ops import dwconv as dwconv_ops
 from image_classification_tpu_torch.ops import (
     _build,
     block_mlp,
@@ -65,6 +77,8 @@ from image_classification_tpu_torch.ops import (
     depthwise_conv7x7_bwd,
     depthwise_conv7x7_bwd_reference,
     depthwise_conv7x7_reference,
+    depthwise_conv7x7_wgrad,
+    depthwise_conv7x7_wgrad_reference,
     gelu,
     gelu_bwd,
     gelu_grad_reference,
@@ -98,6 +112,7 @@ FOLD_SEEDS = (0, 1)
 STAGE_HW = (65, 33, 17, 9)
 DEPTHS, DIMS = CONVNEXT_CONFIGS[MODEL]
 MICRO = 16               # train microbatch: batch 32 / gradient accumulation 2
+ACCUM = 2
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 REF_BATCH = 4            # images in the train step held against the f32 host step
 # The schedule's horizon needs a fold size: ~2/3 of a 44-class set of ~5000
@@ -149,6 +164,10 @@ PROB_TOL = 2e-3
 # bf16 aug of the host's f32 one (~0.6 grey levels apart on average), and
 # the first run measured loss rel err 2.1e-5, cosine 0.99979, gradient rel L2
 # 0.0124, update rel L2 0.090: inside the same bounds, by 2.2x or more.
+# ConvNeXt-L (36 blocks too, wider), aug and mix on, measured on its first
+# run: cosine 0.99978, gradient rel L2 0.0123, update rel L2 0.083, as
+# ConvNeXt-B; loss rel err 6.0e-4, 1.7x inside the bound (its seeded
+# logits are larger, so the same bf16 noise in them moves the loss more).
 TRAIN_LOSS_REL_TOL = 1e-3
 GRAD_MIN_COS = 0.999
 GRAD_REL_L2 = 0.03
@@ -177,6 +196,27 @@ LABEL_TOL = 1e-6
 # 8 per channel (two taps per row, two rows, their weighting).
 WARP_FLOPS_PER_PIXEL = 14
 WARP_FLOPS_PER_CHANNEL = 8
+
+
+# The train entry: ConvNeXt-L (full width and depth) through ``cli train``.
+# Its stage 0 at 260 px, 65x65x192, passes the TPU backward's VMEM budget
+# (24,593,664 > 16,777,216 B), so the depthwise backward there splits into
+# the forward on g with the flipped filter and the wgrad-only kernel.
+ENTRY_MODEL = "convnext_large"
+ENTRY_DEPTHS, ENTRY_DIMS = CONVNEXT_CONFIGS[ENTRY_MODEL]
+WGRAD_SHAPE = (MICRO, STAGE_HW[0], STAGE_HW[0], ENTRY_DIMS[0])
+WGRAD_SMALL = (3, 13, 17, 40)
+# The split route against the fused kernel on the same inputs: dx is the
+# same stencil over the same flipped taps, and dw the same partials summed
+# in the same order, so both should agree to the bit; the bounds allow one
+# bf16 ulp of dx and f32 noise in dw.
+SPLIT_DW_REL_TOL = 1e-6
+# A synthetic 44-class set with a long tail (class k has 1 + a share
+# proportional to 0.9^k of the rest; the last classes have 1 sample, as the
+# real data has), 2 folds of 2 epochs: ~128 train images a fold, 4 steps an
+# epoch at batch 32.
+ENTRY_TRAIN, ENTRY_TEST = 256, 64
+ENTRY_FOLDS, ENTRY_EPOCHS = 2, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -262,8 +302,9 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 class KernelTable:
     """Per kernel: error, kernel / plain / library times and the bound, each
-    summed over the launches of one pass of the slice (``per`` launches at
-    each timed shape)."""
+    summed over ``per`` launches at each timed shape. The table that the
+    ``kernels`` line prints holds one optimizer step of the train entry's
+    model, whose run gives the line its launches."""
 
     def __init__(self):
         self.rows = {}
@@ -320,10 +361,13 @@ KERNEL_META = {
                  "image_classification_tpu/ops/gelu.py:109"),
     "warp": ("cuda", "image_classification_tpu_torch/csrc/warp.cu",
              "image_classification_tpu/ops/warp.py:68"),
+    "dwconv_wgrad": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
+                     "image_classification_tpu/ops/dwconv.py:223"),
 }
 WRAPPERS = {"dwconv": depthwise_conv7x7, "block_mlp": block_mlp, "gelu": gelu,
             "dwconv_bwd": depthwise_conv7x7_bwd, "block_mlp_bwd": block_mlp_bwd,
-            "gelu_bwd": gelu_bwd, "warp": warp}
+            "gelu_bwd": gelu_bwd, "warp": warp,
+            "dwconv_wgrad": depthwise_conv7x7_wgrad}
 
 
 def reset_launches() -> None:
@@ -347,6 +391,10 @@ def check_f32_paths(gen) -> None:
                          depthwise_conv7x7_bwd_reference(x, g, w)):
         require(max_rel(ours, ref) <= 1e-5, f"dwconv bwd f32 rel err "
                 f"{max_rel(ours, ref)}")
+    x = randn(gen, *WGRAD_SMALL, dtype=torch.float32)
+    g = randn(gen, *WGRAD_SMALL, dtype=torch.float32)
+    rel = max_rel(depthwise_conv7x7_wgrad(x, g), depthwise_conv7x7_wgrad_reference(x, g))
+    require(rel <= 1e-5, f"dwconv wgrad f32 {WGRAD_SMALL} rel err {rel}")
     x = randn(gen, 37, 129, scale=3.0, dtype=torch.float32)
     dy = randn(gen, 37, 129, dtype=torch.float32)
     err = (gelu(x) - gelu_reference(x)).abs().max().item()
@@ -384,117 +432,177 @@ def library_dwconv_bwd(x, g, w):
         [True, True, False])
 
 
+def library_dwconv_wgrad(x, g, w):
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+    return lambda: torch.ops.aten.convolution_backward(
+        gc, xc, wc, None, [1, 1], [3, 3], [1, 1], False, [0, 0], x.shape[-1],
+        [False, True, False])
+
+
+def check_wgrad(table: KernelTable, gen) -> None:
+    """The wgrad-only kernel at ConvNeXt-L's stage-0 microbatch in bf16:
+    against its plain version, twice for the same bits, and the split
+    backward (the forward on g with the flipped filter, then the wgrad)
+    against the fused kernel on the same inputs, timed side by side."""
+    _, h, wd, c = WGRAD_SHAPE
+    require(dwconv_ops.bwd_is_split(h, wd, c), f"{WGRAD_SHAPE} no longer splits")
+    x, g = randn(gen, *WGRAD_SHAPE), randn(gen, *WGRAD_SHAPE)
+    w = randn(gen, 7, 7, c, scale=0.15)
+    dw, ref = depthwise_conv7x7_wgrad(x, g), depthwise_conv7x7_wgrad_reference(x, g)
+    require(max_rel(dw, ref) <= DW_REL_TOL, f"dwconv wgrad rel err {max_rel(dw, ref)}")
+    require(torch.equal(depthwise_conv7x7_wgrad(x, g), dw),
+            "dwconv wgrad differs between two runs")
+    (sdx, sdw), (fdx, fdw) = depthwise_conv7x7_bwd(x, g, w), dwconv_ops.fused_bwd(x, g, w)
+    ulps, srel = bf16_ulp_distance(sdx, fdx), max_rel(sdw, fdw)
+    split_ms = time_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 10)
+    fused_ms = time_ms(lambda: dwconv_ops.fused_bwd(x, g, w), 10)
+    print(f"dwconv bwd {WGRAD_SHAPE}: split route (forward on g + wgrad) "
+          f"{split_ms:.4f} ms, fused kernel {fused_ms:.4f} ms; split vs fused: "
+          f"dx {ulps} ulps, dw max rel {srel:.3g}; wgrad vs plain max rel "
+          f"{max_rel(dw, ref):.3g}", flush=True)
+    require(ulps <= ULP_TOL and srel <= SPLIT_DW_REL_TOL,
+            f"split vs fused backward: dx {ulps} ulps, dw rel {srel}")
+    n = x.numel()
+    table.add("dwconv_wgrad", WGRAD_SHAPE, ENTRY_DEPTHS[0] * ACCUM,
+              (dw - ref).abs().max().item(),
+              time_ms(lambda: depthwise_conv7x7_wgrad(x, g), 10),
+              time_ms(lambda: depthwise_conv7x7_wgrad_reference(x, g), 3),
+              time_ms(library_dwconv_wgrad(x, g, w), 10),
+              4 * n + 4 * dw.numel(), 2 * 49 * n, FP32_FLOPS)
+
+
 def check_kernels() -> list[dict]:
-    """Phase 2: each kernel against its plain version on the card, in bf16
-    (timed) at the predict slice's shapes for the forward kernels and the
-    train step's (microbatch 16) for the backward ones, and at small shapes
-    in f32."""
+    """Phase 2: each kernel against its plain version on the card in bf16,
+    timed, at the shapes of both models, and at small shapes in f32.
+    ConvNeXt-B: the forward kernels at the predict slice's shapes and the
+    backward ones at the train step's (microbatch 16). ConvNeXt-L, the train
+    entry's model: forward and backward at its microbatch of 16 (its C = 192
+    is not a multiple of the block tail's 128-wide GEMM tile). The
+    ``kernels`` line sums ConvNeXt-L's times over one optimizer step."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     check_f32_paths(gen)
-    table = KernelTable()
     for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, DIMS, DEPTHS)):
-        # ---- forward kernels, predict shapes: one forward of 256 views
-        x = randn(gen, VIEWS_BATCH, hw, hw, c)
-        w = randn(gen, 7, 7, c, scale=0.15)
-        y, ref = depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w)
-        ulps = bf16_ulp_distance(y, ref)
-        require(ulps <= ULP_TOL, f"dwconv stage {stage}: {ulps} ulps")
-        n = x.numel()
-        table.add("dwconv", tuple(x.shape), depth,
-                  (y.float() - ref.float()).abs().max().item(),
-                  time_ms(lambda: depthwise_conv7x7(x, w), 10),
-                  time_ms(lambda: depthwise_conv7x7_reference(x, w), 5),
-                  time_ms(library_dwconv(x, w), 10),
-                  4 * n, 2 * 49 * n, FP32_FLOPS)
-        del x, y, ref
-        if block_mlp_available(c):
-            m = VIEWS_BATCH * hw * hw
-            args = block_tail_inputs(gen, m, c, torch.bfloat16)
-            y, ref = block_mlp(*args), block_mlp_reference(*args)
-            err = (y.float() - ref.float()).abs().max().item()
-            require(max_rel(y, ref) <= BLOCK_REL_TOL,
-                    f"block tail stage {stage}: rel err {max_rel(y, ref)}")
-            table.add("block_mlp", (m, c), depth, err,
-                      time_ms(lambda: block_mlp(*args), 5),
-                      time_ms(lambda: block_mlp_reference(*args), 2), None,
-                      6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
-            del args, y, ref
-        else:
-            x = randn(gen, VIEWS_BATCH * hw * hw, 4 * c, scale=3.0)
-            y, ref = gelu(x), gelu_reference(x)
-            ulps = bf16_ulp_distance(y, ref)
-            require(ulps <= ULP_TOL, f"gelu: {ulps} ulps")
-            table.add("gelu", tuple(x.shape), depth,
-                      (y.float() - ref.float()).abs().max().item(),
-                      time_ms(lambda: gelu(x), 20),
-                      time_ms(lambda: gelu_reference(x), 5),
-                      time_ms(lambda: torch.nn.functional.gelu(x), 20),
-                      4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
-            del x, y, ref
-        torch.cuda.empty_cache()
+        print(f"{MODEL} stage {stage}:", flush=True)
+        check_stage(KernelTable(), gen, stage, hw, c, VIEWS_BATCH, depth)
+    table = KernelTable()
+    for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, ENTRY_DIMS, ENTRY_DEPTHS)):
+        print(f"{ENTRY_MODEL} stage {stage}:", flush=True)
+        check_stage(table, gen, stage, hw, c, MICRO, depth * ACCUM)
+    check_warp(table, gen)
+    check_wgrad(table, gen)
+    return table.entries(KERNEL_META)
 
-        # ---- backward kernels, train shapes: one microbatch of 16 images
-        x = randn(gen, MICRO, hw, hw, c)
-        g = randn(gen, MICRO, hw, hw, c)
-        w = randn(gen, 7, 7, c, scale=0.15)
-        (dx, dw), (rdx, rdw) = (depthwise_conv7x7_bwd(x, g, w),
-                                depthwise_conv7x7_bwd_reference(x, g, w))
-        ulps = bf16_ulp_distance(dx, rdx)
-        require(ulps <= ULP_TOL, f"dwconv bwd stage {stage}: dx {ulps} ulps")
-        require(max_rel(dw, rdw) <= DW_REL_TOL,
-                f"dwconv bwd stage {stage}: dw rel err {max_rel(dw, rdw)}")
-        require(torch.equal(depthwise_conv7x7_bwd(x, g, w)[1], dw),
-                "dwconv bwd: dw differs between two runs")
-        n = x.numel()
-        table.add("dwconv_bwd", tuple(x.shape), depth,
+
+def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
+                fwd_batch: int, per: int) -> None:
+    """One stage's kernels in bf16 against their plain versions: the
+    forward ones on ``fwd_batch`` maps, the backward ones on MICRO; timed
+    and added to ``table`` as ``per`` launches each. Where the depthwise
+    backward splits, its dx adds ``per`` launches of the forward kernel at
+    the same shape, and its wgrad is timed in check_wgrad."""
+    split = dwconv_ops.bwd_is_split(hw, hw, c)
+    x = randn(gen, fwd_batch, hw, hw, c)
+    w = randn(gen, 7, 7, c, scale=0.15)
+    y, ref = depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w)
+    ulps = bf16_ulp_distance(y, ref)
+    require(ulps <= ULP_TOL, f"dwconv stage {stage} {tuple(x.shape)}: {ulps} ulps")
+    n = x.numel()
+    table.add("dwconv", tuple(x.shape), per * (1 + split),
+              (y.float() - ref.float()).abs().max().item(),
+              time_ms(lambda: depthwise_conv7x7(x, w), 10),
+              time_ms(lambda: depthwise_conv7x7_reference(x, w), 5),
+              time_ms(library_dwconv(x, w), 10),
+              4 * n, 2 * 49 * n, FP32_FLOPS)
+    del x, y, ref
+    if block_mlp_available(c):
+        m = fwd_batch * hw * hw
+        args = block_tail_inputs(gen, m, c, torch.bfloat16)
+        y, ref = block_mlp(*args), block_mlp_reference(*args)
+        err = (y.float() - ref.float()).abs().max().item()
+        require(max_rel(y, ref) <= BLOCK_REL_TOL,
+                f"block tail stage {stage} {(m, c)}: rel err {max_rel(y, ref)}")
+        table.add("block_mlp", (m, c), per, err,
+                  time_ms(lambda: block_mlp(*args), 5),
+                  time_ms(lambda: block_mlp_reference(*args), 2), None,
+                  6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
+        del args, y, ref
+    else:
+        x = randn(gen, fwd_batch * hw * hw, 4 * c, scale=3.0)
+        y, ref = gelu(x), gelu_reference(x)
+        ulps = bf16_ulp_distance(y, ref)
+        require(ulps <= ULP_TOL, f"gelu {tuple(x.shape)}: {ulps} ulps")
+        table.add("gelu", tuple(x.shape), per,
+                  (y.float() - ref.float()).abs().max().item(),
+                  time_ms(lambda: gelu(x), 20),
+                  time_ms(lambda: gelu_reference(x), 5),
+                  time_ms(lambda: torch.nn.functional.gelu(x), 20),
+                  4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
+        del x, y, ref
+    torch.cuda.empty_cache()
+
+    x = randn(gen, MICRO, hw, hw, c)
+    g = randn(gen, MICRO, hw, hw, c)
+    w = randn(gen, 7, 7, c, scale=0.15)
+    (dx, dw), (rdx, rdw) = (depthwise_conv7x7_bwd(x, g, w),
+                            depthwise_conv7x7_bwd_reference(x, g, w))
+    ulps = bf16_ulp_distance(dx, rdx)
+    require(ulps <= ULP_TOL, f"dwconv bwd stage {stage} {tuple(x.shape)}: dx {ulps} ulps")
+    require(max_rel(dw, rdw) <= DW_REL_TOL,
+            f"dwconv bwd stage {stage} {tuple(x.shape)}: dw rel err {max_rel(dw, rdw)}")
+    require(torch.equal(depthwise_conv7x7_bwd(x, g, w)[1], dw),
+            "dwconv bwd: dw differs between two runs")
+    n = x.numel()
+    if not split:
+        table.add("dwconv_bwd", tuple(x.shape), per,
                   (dx.float() - rdx.float()).abs().max().item(),
                   time_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 10),
                   time_ms(lambda: depthwise_conv7x7_bwd_reference(x, g, w), 3),
                   time_ms(library_dwconv_bwd(x, g, w), 10),
                   6 * n, 4 * 49 * n, FP32_FLOPS)
-        del x, g, dx, dw, rdx, rdw
-        if block_mlp_available(c):
-            m = MICRO * hw * hw
-            args = block_tail_inputs(gen, m, c, torch.bfloat16)
-            y, a, u = block_mlp_fwd(*args, 1e-6, save=True)
-            for name, ours, ref in zip("yau", (y, a, u), block_mlp_fwd_reference(*args)):
-                require(max_rel(ours, ref) <= BLOCK_REL_TOL,
-                        f"block tail training forward stage {stage}: {name}")
-            dy = randn(gen, m, c)
-            bwd_args = (args[0], a, u, *args[2:], dy)
-            ours, ref = block_mlp_bwd(*bwd_args), block_mlp_bwd_reference(*bwd_args)
-            rels = [max_rel(o, r) for o, r in zip(ours, ref)]
-            require(max(rels) <= BLOCK_REL_TOL,
-                    f"block tail bwd stage {stage}: rel errs {rels}")
-            again = block_mlp_bwd(*bwd_args)
-            require(all(torch.equal(p, q) for p, q in zip(ours, again)),
-                    "block tail bwd differs between two runs")
-            print(f"block tail bwd stage {stage}: max rel err of (dx, dres, ds, "
-                  f"dt, dw1, db1, dw2, db2, dg) = {[f'{r:.2e}' for r in rels]}",
-                  flush=True)
-            table.add("block_mlp_bwd", (m, c), depth,
-                      (ours[0].float() - ref[0].float()).abs().max().item(),
-                      time_ms(lambda: block_mlp_bwd(*bwd_args), 5),
-                      time_ms(lambda: block_mlp_bwd_reference(*bwd_args), 2),
-                      None, 16 * m * c + 16 * c * c, 32 * m * c * c,
-                      BF16_TENSOR_FLOPS)
-            del args, y, a, u, dy, bwd_args, ours, ref, again
-        else:
-            x = randn(gen, MICRO * hw * hw, 4 * c, scale=3.0)
-            dy = randn(gen, MICRO * hw * hw, 4 * c)
-            dx, ref = gelu_bwd(x, dy), gelu_grad_reference(x, dy)
-            ulps = bf16_ulp_distance(dx, ref)
-            require(ulps <= ULP_TOL, f"gelu bwd: {ulps} ulps")
-            table.add("gelu_bwd", tuple(x.shape), depth,
-                      (dx.float() - ref.float()).abs().max().item(),
-                      time_ms(lambda: gelu_bwd(x, dy), 20),
-                      time_ms(lambda: gelu_grad_reference(x, dy), 5),
-                      time_ms(lambda: torch.ops.aten.gelu_backward(dy, x), 20),
-                      6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
-            del x, dy, dx, ref
-        torch.cuda.empty_cache()
-    check_warp(table, gen)
-    return table.entries(KERNEL_META)
+    else:
+        print(f"dwconv bwd {tuple(x.shape)} (split route): dx {ulps} ulps, dw max "
+              f"rel {max_rel(dw, rdw):.3g} against the plain version", flush=True)
+    del x, g, dx, dw, rdx, rdw
+    if block_mlp_available(c):
+        m = MICRO * hw * hw
+        args = block_tail_inputs(gen, m, c, torch.bfloat16)
+        y, a, u = block_mlp_fwd(*args, 1e-6, save=True)
+        for name, ours, ref in zip("yau", (y, a, u), block_mlp_fwd_reference(*args)):
+            require(max_rel(ours, ref) <= BLOCK_REL_TOL,
+                    f"block tail training forward stage {stage} {(m, c)}: {name}")
+        dy = randn(gen, m, c)
+        bwd_args = (args[0], a, u, *args[2:], dy)
+        ours, ref = block_mlp_bwd(*bwd_args), block_mlp_bwd_reference(*bwd_args)
+        rels = [max_rel(o, r) for o, r in zip(ours, ref)]
+        require(max(rels) <= BLOCK_REL_TOL,
+                f"block tail bwd stage {stage} {(m, c)}: rel errs {rels}")
+        again = block_mlp_bwd(*bwd_args)
+        require(all(torch.equal(p, q) for p, q in zip(ours, again)),
+                "block tail bwd differs between two runs")
+        print(f"block tail bwd {(m, c)}: max rel err of (dx, dres, ds, dt, dw1, "
+              f"db1, dw2, db2, dg) = {[f'{r:.2e}' for r in rels]}", flush=True)
+        table.add("block_mlp_bwd", (m, c), per,
+                  (ours[0].float() - ref[0].float()).abs().max().item(),
+                  time_ms(lambda: block_mlp_bwd(*bwd_args), 5),
+                  time_ms(lambda: block_mlp_bwd_reference(*bwd_args), 2),
+                  None, 16 * m * c + 16 * c * c, 32 * m * c * c,
+                  BF16_TENSOR_FLOPS)
+        del args, y, a, u, dy, bwd_args, ours, ref, again
+    else:
+        x = randn(gen, MICRO * hw * hw, 4 * c, scale=3.0)
+        dy = randn(gen, MICRO * hw * hw, 4 * c)
+        dx, ref = gelu_bwd(x, dy), gelu_grad_reference(x, dy)
+        ulps = bf16_ulp_distance(dx, ref)
+        require(ulps <= ULP_TOL, f"gelu bwd {tuple(x.shape)}: {ulps} ulps")
+        table.add("gelu_bwd", tuple(x.shape), per,
+                  (dx.float() - ref.float()).abs().max().item(),
+                  time_ms(lambda: gelu_bwd(x, dy), 20),
+                  time_ms(lambda: gelu_grad_reference(x, dy), 5),
+                  time_ms(lambda: torch.ops.aten.gelu_backward(dy, x), 20),
+                  6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
+        del x, dy, dx, ref
+    torch.cuda.empty_cache()
 
 
 def grid_sample_reflect(img: torch.Tensor, coords: torch.Tensor, dtype):
@@ -664,6 +772,7 @@ def check_train_step(cfg) -> dict:
     draws = draw_train_step(torch.Generator(device="cuda").manual_seed(12),
                             tuple(images.shape), cfg)
     runs = {}
+    t0 = time.perf_counter()
     for name, c, device in (("card", cfg, "cuda"), ("host", cfg32, "cpu")):
         bundle = train_model(c, device)
         model = bundle.module
@@ -688,6 +797,7 @@ def check_train_step(cfg) -> dict:
         del bundle, model, state, grads, before
         torch.cuda.empty_cache()
     card, host = runs["card"], runs["host"]
+    both_s = time.perf_counter() - t0
     lr = tx.schedule(start)
     loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
     cos = [float(torch.nn.functional.cosine_similarity(a.flatten().double(),
@@ -698,7 +808,8 @@ def check_train_step(cfg) -> dict:
     upd_rel = rel_l2(card["update"], host["update"])
     p_err = max(float((a - b).abs().max()) for a, b in zip(card["params"], host["params"]))
     e_err = max(float((a - b).abs().max()) for a, b in zip(card["ema"], host["ema"]))
-    print(f"train step vs f32 host step ({REF_BATCH} images, lr {lr:.3g}): loss "
+    print(f"{cfg.model_name} train step vs f32 host step ({REF_BATCH} images, lr "
+          f"{lr:.3g}, both in {both_s:.1f} s): loss "
           f"{card['loss']:.6f} vs {host['loss']:.6f} (rel {loss_rel:.3g}); "
           f"gradient cosine min {min(cos):.5f} ({card['names'][worst]}), median "
           f"{float(np.median(cos)):.5f}; gradient rel L2 {grad_rel:.4g}; update "
@@ -717,7 +828,8 @@ def check_train_step(cfg) -> dict:
             "update_rel_l2": upd_rel}
 
 
-def profile_train_step(step, state, batches, step_wall_ms: float) -> float:
+def profile_train_step(step, state, batches, step_wall_ms: float,
+                       top: int | None = None) -> float:
     """The last of ``batches``' train steps under torch.profiler (the first
     warms the profiler up): its device time by kernel name, printed. The
     device's idle share is taken against ``step_wall_ms``, the wall time of a
@@ -739,16 +851,16 @@ def profile_train_step(step, state, batches, step_wall_ms: float) -> float:
     print(f"profile of one train step of 32 images: device kernel time "
           f"{device_ms:.3f} ms, wall {step_wall_ms:.3f} ms a step in the timed "
           f"run, device idle {idle:.1%}", flush=True)
-    for ms, count, key in rows:
+    for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x {key[:100]}", flush=True)
     return device_ms
 
 
-def run_train(kernels: list[dict]) -> dict:
+def run_train() -> dict:
     """Phase 3: the train slice on the card, then an eval step on the EMA
     weights."""
     cfg = load_config(os.path.join(REPO, "configs", "v4.json"))
-    require(cfg.batch_size == 32 and cfg.gradient_accumulation_steps == 2,
+    require(cfg.batch_size == MICRO * ACCUM and cfg.gradient_accumulation_steps == ACCUM,
             "configs/v4.json no longer trains in batches of 32 with accumulation 2")
     require(cfg.aug_enabled and cfg.mixup_alpha > 0 and cfg.cutmix_alpha > 0,
             "configs/v4.json no longer trains with aug and MixUp/CutMix")
@@ -792,14 +904,14 @@ def run_train(kernels: list[dict]) -> dict:
     accum = cfg.gradient_accumulation_steps
     per_step = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
                 "gelu": DEPTHS[3]}
-    want = {"warp": TRAIN_STEPS}     # one warp of the whole batch a step
+    # one warp of the whole batch a step; no map of ConvNeXt-B splits the
+    # depthwise backward
+    want = {"warp": TRAIN_STEPS, "dwconv_wgrad": 0}
     for k, n_fwd in per_step.items():
         want[k] = want[f"{k}_bwd"] = n_fwd * accum * TRAIN_STEPS
     for name, n in want.items():
         require(launches[name] == n, f"{name}: {launches[name]} launches "
                 f"in {TRAIN_STEPS} steps, expected {n}")
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
     device_ms = profile_train_step(step, state, batches[-2:],
                                    wall * 1e3 / TRAIN_STEPS)
     aug_off_ips = train_rate_without_aug(bundle, cfg, tx, state,
@@ -821,6 +933,48 @@ def run_train(kernels: list[dict]) -> dict:
     return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall,
             "aug_off_images_per_s": aug_off_ips, "peak_mem_gib": peak_gib,
             "device_ms": device_ms, **check}
+
+
+def time_entry_step(cfg) -> dict:
+    """``make_train_step`` of the train entry's model (ConvNeXt-L, aug and
+    mix on, seeded weights) alone: the host clock over TRAIN_STEPS steps
+    after TRAIN_WARMUP, then one profiled step, without the loop's loader,
+    validation and checkpoint writes around it."""
+    bundle = train_model(cfg, "cuda")
+    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
+    train_step = make_train_step(bundle, cfg, tx, build_criterion(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    def step(state, batch):
+        return train_step(state, batch, generator=gen)
+
+    state = create_train_state(bundle.module)
+    n = TRAIN_WARMUP + TRAIN_STEPS + 2
+    images, labels = train_inputs(cfg, n * cfg.batch_size, seed=25)
+    batches = [{"image": images[i::n].cuda(), "label": labels[i::n].cuda()}
+               for i in range(n)]
+    for b in batches[:TRAIN_WARMUP]:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(np.isfinite(float(m["loss"])), "non-finite ConvNeXt-L train loss")
+    require(launches["dwconv_wgrad"] == ENTRY_DEPTHS[0] * cfg.gradient_accumulation_steps
+            * TRAIN_STEPS, f"wgrad launches {launches['dwconv_wgrad']}")
+    print(f"{ENTRY_MODEL} train step alone: {TRAIN_STEPS * cfg.batch_size / wall:.2f} "
+          f"images/s ({TRAIN_STEPS} steps of {cfg.batch_size} in {wall:.3f} s), peak "
+          f"memory {peak_gib:.3f} GiB, launches {launches}", flush=True)
+    device_ms = profile_train_step(step, state, batches[-2:], wall * 1e3 / TRAIN_STEPS,
+                                   top=20)
+    return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall,
+            "device_ms": device_ms, "peak_mem_gib": peak_gib}
 
 
 def train_rate_without_aug(bundle, cfg, tx, state, batches) -> float:
@@ -901,7 +1055,7 @@ def _run_slice(tmp: str) -> dict:
     forwards = len(FOLD_SEEDS) * -(-N_IMAGES // 64)
     per_forward = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
                    "gelu": DEPTHS[3], "dwconv_bwd": 0, "block_mlp_bwd": 0,
-                   "gelu_bwd": 0, "warp": 0}
+                   "gelu_bwd": 0, "warp": 0, "dwconv_wgrad": 0}
     print(f"cli predict: {cli_s:.3f} s, launches {launches}, "
           f"{forwards} forwards", flush=True)
     for k, n in per_forward.items():
@@ -959,6 +1113,138 @@ def _run_slice(tmp: str) -> dict:
             "peak_mem_gib": peak_gib, "max_dprob": delta}
 
 
+def entry_labels() -> np.ndarray:
+    """ENTRY_TRAIN labels over 44 classes with a long tail, shuffled."""
+    k = 44
+    share = 0.9 ** np.arange(k)
+    counts = 1 + np.floor((ENTRY_TRAIN - k) * share / share.sum()).astype(int)
+    counts[0] += ENTRY_TRAIN - counts.sum()
+    labels = np.repeat(np.arange(k), counts)
+    return labels[np.random.default_rng(81).permutation(ENTRY_TRAIN)]
+
+
+def write_entry_data(cfg, labels: np.ndarray) -> None:
+    """The train and test CSVs (zero-padded numeric ids) and their decode
+    caches, uint8 60x80 images from numpy seeds."""
+    for path, dir_, n, col, seed in (
+            (cfg.train_csv, cfg.train_dir, ENTRY_TRAIN, "target", 82),
+            (cfg.test_csv, cfg.test_dir, ENTRY_TEST, "predict", 83)):
+        vals = labels if col == "target" else np.zeros(n, int)
+        with open(path, "w") as f:
+            f.write(f"id,{col}\n" + "".join(f"{i:04d},{v}\n" for i, v in enumerate(vals)))
+        ids = Manifest.from_csv(path, is_test=col == "predict").ids
+        save_decode_cache(dir_, ids, synthetic_images(n, seed), cfg.cache_dir)
+
+
+def run_train_entry(kernels: list[dict]) -> dict:
+    """Phase 5: ``cli train`` (ConvNeXt-L, 2 folds x 2 epochs), then
+    ``cli predict`` on its checkpoints."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        return _run_train_entry(tmp, kernels)
+
+
+def _run_train_entry(tmp: str, kernels: list[dict]) -> dict:
+    v4 = os.path.join(REPO, "configs", "v4.json")
+    overrides = [
+        f"train_csv={tmp}/train.csv", f"train_dir={tmp}/train",
+        f"test_csv={tmp}/test.csv", f"test_dir={tmp}/test",
+        f"cache_dir={tmp}/cache", f"model_save_path={tmp}/models",
+        f"output_dir={tmp}/out", f"submission_path={tmp}/submission.csv",
+        f"model_name={ENTRY_MODEL}", f"num_folds={ENTRY_FOLDS}",
+        f"epochs={ENTRY_EPOCHS}",
+    ]
+    cfg = load_config(v4, overrides)
+    labels = entry_labels()
+    write_entry_data(cfg, labels)
+    free_gib = shutil.disk_usage(tmp).free / 2**30
+    print(f"train entry: {ENTRY_MODEL}, {ENTRY_TRAIN} train / {ENTRY_TEST} test "
+          f"images, {np.bincount(labels, minlength=44).tolist()} a class; "
+          f"{free_gib:.1f} GiB free under {tmp}", flush=True)
+
+    # Main path, through the user's entry point. Counters from 0 right before.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["train", "--config", v4, *overrides])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    with open(os.path.join(cfg.output_dir, "train.log")) as f:
+        log = f.read()
+    require("failed; continuing" not in log, "a fold failed:\n" + log[-4000:])
+    with open(os.path.join(cfg.output_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    require(len(records) == ENTRY_FOLDS * ENTRY_EPOCHS,
+            f"metrics.jsonl has {len(records)} lines")
+    require(all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in records),
+            "non-finite loss in metrics.jsonl")
+    for fold in range(1, ENTRY_FOLDS + 1):
+        for name in (f"best_model_fold{fold}.pt", f"best_model_fold{fold}.json",
+                     f"best_loss_model_fold{fold}.pt", f"best_loss_model_fold{fold}.json"):
+            require(os.path.exists(os.path.join(cfg.model_save_path, name)), f"no {name}")
+        require(os.path.exists(os.path.join(cfg.output_dir, f"train_state_fold{fold}.pt")),
+                f"no train_state_fold{fold}.pt")
+    with open(cfg.submission_path) as f:
+        sub = f.read().splitlines()
+    require(sub[0] == "id,target" and len(sub) == ENTRY_TEST + 1,
+            f"submission has {len(sub)} lines, header {sub[:1]}")
+
+    # Launches: per optimizer step two microbatches forward and backward,
+    # the stage-0 backward as the forward on g plus the wgrad; per
+    # validation batch and per fold model's test batch one forward.
+    steps = sum(r["steps"] for r in records)
+    val_sizes = [len(v) for _, v in stratified_kfold(labels, ENTRY_FOLDS, cfg.fold_seed)]
+    val_batch = cfg.batch_size * cfg.val_batch_multiplier
+    forwards = (ENTRY_EPOCHS * sum(-(-n // val_batch) for n in val_sizes)
+                + ENTRY_FOLDS * -(-ENTRY_TEST // (cfg.batch_size * cfg.infer_batch_multiplier)))
+    accum = cfg.gradient_accumulation_steps
+    d = ENTRY_DEPTHS
+    fwd = {"dwconv": sum(d), "block_mlp": d[0] + d[1], "gelu": d[2] + d[3]}
+    want = {k: n * (accum * steps + forwards) for k, n in fwd.items()}
+    want["dwconv"] += d[0] * accum * steps
+    want.update(dwconv_bwd=(d[1] + d[2] + d[3]) * accum * steps,
+                block_mlp_bwd=fwd["block_mlp"] * accum * steps,
+                gelu_bwd=fwd["gelu"] * accum * steps,
+                dwconv_wgrad=d[0] * accum * steps, warp=steps)
+    print(f"cli train: {train_s:.3f} s, {steps} optimizer steps, {forwards} "
+          f"forwards without gradient, launches {launches}; per optimizer step "
+          f"the wgrad kernel {launches['dwconv_wgrad'] / steps:g}; peak memory "
+          f"{peak_gib:.3f} GiB", flush=True)
+    for name, n in want.items():
+        require(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+    for r in records:
+        print(f"  fold {r['fold']} epoch {r['epoch'] + 1}: train loss {r['train_loss']:.4f} "
+              f"val loss {r['val_loss']:.4f} val acc {r['val_acc']:.4f}; "
+              f"{r['images_per_sec']} images/s, duty cycle {r['duty_cycle']}, "
+              f"{r['steps']} steps in {r['wall_time_s']} s", flush=True)
+
+    # The saved checkpoints through ``cli predict``: the same predictions.
+    t0 = time.perf_counter()
+    cli.main(["predict", "--config", v4, "--folds", ",".join(
+        str(k) for k in range(1, ENTRY_FOLDS + 1)), *overrides,
+        f"submission_path={tmp}/predict.csv"])
+    predict_s = time.perf_counter() - t0
+    with open(f"{tmp}/predict.csv") as f:
+        again = f.read().splitlines()
+    require(again[0] == "id,predict" and again[1:] == sub[1:],
+            "cli predict on the saved checkpoints differs from the train run's "
+            "submission")
+    print(f"cli predict on the saved checkpoints: {predict_s:.3f} s, "
+          f"{ENTRY_TEST} rows equal to the train run's submission", flush=True)
+    step = time_entry_step(cfg)
+    check = check_train_step(load_config(v4).replace(model_name=ENTRY_MODEL,
+                                                     batch_size=REF_BATCH))
+    return {"train_s": train_s, "peak_mem_gib": peak_gib,
+            "images_per_s": [r["images_per_sec"] for r in records],
+            "duty_cycle": [r["duty_cycle"] for r in records], "step": step,
+            "step_check": check}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -977,7 +1263,7 @@ def main() -> int:
     v4 = load_config(os.path.join(REPO, "configs", "v4.json"))
     check_aug(v4)
     aug_ips = aug_rate(v4)
-    train = run_train(kernels)
+    train = run_train()
     print(f"aug slice: {aug_ips} images/s; train slice (aug and mix on): "
           f"{train['images_per_s']} images/s (aug off, same run: "
           f"{train['aug_off_images_per_s']}), peak memory "
@@ -987,6 +1273,15 @@ def main() -> int:
     print(f"slice: {stats['images_per_s']} images/s ({N_IMAGES} images x "
           f"{len(FOLD_SEEDS)} folds x 4 views in {stats['wall_s']} s), peak "
           f"memory {stats['peak_mem_gib']} GiB, on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    entry = run_train_entry(kernels)
+    print(f"train entry ({ENTRY_MODEL}, cli train): {entry['train_s']} s; the "
+          f"loop's images/s by epoch {entry['images_per_s']}, duty cycle "
+          f"{entry['duty_cycle']}; peak memory {entry['peak_mem_gib']} GiB; the "
+          f"step alone {entry['step']['images_per_s']} images/s, "
+          f"{entry['step']['device_ms']} ms of device time a step, peak memory "
+          f"{entry['step']['peak_mem_gib']} GiB; against the f32 host step "
+          f"{entry['step_check']}; on {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
 // 7x7 depthwise convolution, SAME padding, no bias, channels-last (NHWC):
-// the forward stencil and the fused backward (dx and dw in one pass).
+// the forward stencil, the fused backward (dx and dw in one pass) and the
+// wgrad-only backward (dw alone).
 //
 // Replaces: image_classification_tpu/ops/dwconv.py:_conv_same_pallas (body
-// _fwd_kernel) and _bwd_pallas (body _bwd_kernel). The split wgrad-only
-// kernel _dw_kernel (_wgrad_pallas) serves maps over the TPU's 16 MiB VMEM
-// budget, which no preset reaches; it is not ported.
+// _fwd_kernel), _bwd_pallas (body _bwd_kernel) and _wgrad_pallas (body
+// _dw_kernel). _bwd_pallas splits the backward into the forward stencil on g
+// with the flipped filter (dx) and _wgrad_pallas (dw) where its VMEM estimate
+// of one image passes 16 MiB (stage 0 of ConvNeXt-L at 260 px); the port's
+// ops/dwconv.py routes the same way, so both packages run the same kernels
+// at each shape.
 //
 // What bounds it on the H100: device memory. Each output element costs 49
 // FMAs and, ideally, one read of x and one write of y, so at bf16 the
@@ -34,6 +38,13 @@
 // sums its 8 rows in a fixed order in shared memory, and writes one f32
 // partial (49, 32); a second kernel adds the partials of each (tap, channel)
 // in block order. No float atomics: two runs give the same bits.
+//
+// The wgrad-only kernel is the same kernel without dx (no taps, no stencil,
+// no store): it reads x and g once each and does 2 * 49 FLOP an element, so
+// at bf16 it is bound by the f32 units (1.27 GFLOP at 16x65x65x192: 19 us)
+// about as much as by memory (52 MB: 15.5 us). Its tiles, partials and
+// reduction order are the fused kernel's, so its dw equals the fused dw bit
+// for bit.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -161,7 +172,9 @@ dwconv7x7_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (h0 + r < H && c0 + c < C) store_row(y + img, acc, h0 + r, w0, W, C, c0 + c);
 }
 
-template <typename T, bool VEC>
+// WITH_DX: the fused backward; without it, the wgrad-only kernel (w and dx
+// unused).
+template <typename T, bool VEC, bool WITH_DX>
 __global__ void __launch_bounds__(THREADS)
 dwconv7x7_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      const T* __restrict__ w, T* __restrict__ dx,
@@ -175,7 +188,7 @@ dwconv7x7_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int c0 = blockIdx.y * CB;
   const int c = threadIdx.x % CB;
   const int r = threadIdx.x / CB;
-  fill_taps<T, true>(ws, w, C, c0);
+  if constexpr (WITH_DX) fill_taps<T, true>(ws, w, C, c0);
 
   float dwacc[KS * KS];
 #pragma unroll
@@ -190,9 +203,12 @@ dwconv7x7_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     fill_tile<T, VEC>(xs, x + img, TH, TW, h0, w0, H, W, C, c0);
     __syncthreads();
 
-    float acc[TW];
-    stencil_row(gs, ws, r, c, acc);
-    if (h0 + r < H && c0 + c < C) store_row(dx + img, acc, h0 + r, w0, W, C, c0 + c);
+    if constexpr (WITH_DX) {
+      float acc[TW];
+      stencil_row(gs, ws, r, c, acc);
+      if (h0 + r < H && c0 + c < C)
+        store_row(dx + img, acc, h0 + r, w0, W, C, c0 + c);
+    }
 
     float xr[TW];
 #pragma unroll
@@ -272,6 +288,7 @@ cudaError_t launch(const void* x, const void* w, void* y, int B, int H, int W,
   return cudaGetLastError();
 }
 
+// dx == nullptr launches the wgrad-only kernel (w is then unread too).
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const void* w, void* dx,
                        float* partial, float* dw, int groups, int B, int H,
@@ -283,11 +300,18 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* w, void* dx,
   const T* gt = static_cast<const T*>(g);
   const T* wt = static_cast<const T*>(w);
   T* dxt = static_cast<T*>(dx);
-  if (vec_ok<T>(C, x, g)) {
-    dwconv7x7_bwd_kernel<T, true><<<grid, THREADS, 0, stream>>>(
+  const bool vec = vec_ok<T>(C, x, g);
+  if (dx != nullptr && vec) {
+    dwconv7x7_bwd_kernel<T, true, true><<<grid, THREADS, 0, stream>>>(
+        xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
+  } else if (dx != nullptr) {
+    dwconv7x7_bwd_kernel<T, false, true><<<grid, THREADS, 0, stream>>>(
+        xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
+  } else if (vec) {
+    dwconv7x7_bwd_kernel<T, true, false><<<grid, THREADS, 0, stream>>>(
         xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
   } else {
-    dwconv7x7_bwd_kernel<T, false><<<grid, THREADS, 0, stream>>>(
+    dwconv7x7_bwd_kernel<T, false, false><<<grid, THREADS, 0, stream>>>(
         xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
   }
   cudaError_t err = cudaGetLastError();
@@ -335,6 +359,28 @@ extern "C" int ic_dwconv7x7_bwd(const void* x, const void* g, const void* w,
     case IC_BF16:
       return launch_bwd<__nv_bfloat16>(x, g, w, dx, p, d, groups, B, H, W, C,
                                        st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The wgrad-only backward: dw (7, 7, C) f32 of the conv at x for the output
+// gradient g; x and g (B, H, W, C) contiguous, of one dtype; partial as for
+// ic_dwconv7x7_bwd.
+extern "C" int ic_dwconv7x7_wgrad(const void* x, const void* g, void* partial,
+                                  void* dw, int groups, int B, int H, int W,
+                                  int C, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (groups != bwd_groups(B, H, W, C)) return cudaErrorInvalidValue;
+  float* p = static_cast<float*>(partial);
+  float* d = static_cast<float*>(dw);
+  switch (dtype) {
+    case IC_F32:
+      return launch_bwd<float>(x, g, nullptr, nullptr, p, d, groups, B, H, W, C,
+                               st);
+    case IC_BF16:
+      return launch_bwd<__nv_bfloat16>(x, g, nullptr, nullptr, p, d, groups, B,
+                                       H, W, C, st);
     default:
       return cudaErrorInvalidValue;
   }

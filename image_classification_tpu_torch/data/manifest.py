@@ -11,6 +11,7 @@ cells, which pandas keeps as NaN, are not supported.
 from __future__ import annotations
 
 import csv
+import os
 import re
 from dataclasses import dataclass
 
@@ -75,3 +76,28 @@ class Manifest:
 
     def subset(self, indices: np.ndarray) -> "Manifest":
         return Manifest(self.ids[indices], self.labels[indices], self.is_test)
+
+
+def class_distribution(labels: np.ndarray, num_classes: int) -> np.ndarray:
+    return np.bincount(labels[labels >= 0], minlength=num_classes)
+
+
+def distribution_stats(labels: np.ndarray, num_classes: int) -> dict:
+    counts = class_distribution(labels, num_classes)
+    return {
+        "num_samples": int(labels.shape[0]),
+        "num_classes_present": int((counts > 0).sum()),
+        "max": int(counts.max()),
+        "min": int(counts.min()),
+        "mean": float(counts.mean()),
+        "median": float(np.median(counts)),
+        "std": float(counts.std()),
+    }
+
+
+def verify_images(manifest: Manifest, img_dir: str,
+                  extensions: tuple[str, ...] = (".jpg", ".jpeg", ".png")) -> list[str]:
+    """Ids with no image file under ``img_dir``."""
+    present = set(os.listdir(img_dir)) if os.path.isdir(img_dir) else set()
+    return [str(id_) for id_ in manifest.ids
+            if not any(f"{id_}{ext}" in present for ext in extensions)]

@@ -42,6 +42,22 @@ def decode_cache_key(img_dir: str, ids, native_size: tuple[int, int]) -> str:
     return hsh.hexdigest()[:16]
 
 
+def save_decode_cache(img_dir: str, ids, images: np.ndarray, cache_dir: str) -> str:
+    """Write ``images`` (uint8 (N, H, W, 3), row i the image of ``ids[i]``)
+    as the decode cache of ``ids`` under ``img_dir``, in the layout
+    :func:`load_decode_cache` and the JAX package's ``ImageSource`` read
+    (for data made in memory, such as a synthetic set); returns the key."""
+    images = np.ascontiguousarray(images, dtype=np.uint8)
+    if images.ndim != 4 or len(images) != len(ids):
+        raise ValueError(f"images {images.shape} for {len(ids)} ids")
+    key = decode_cache_key(img_dir, ids, images.shape[1:3])
+    os.makedirs(cache_dir, exist_ok=True)
+    images.tofile(os.path.join(cache_dir, f"imgs_{key}.u8"))
+    with open(os.path.join(cache_dir, f"imgs_{key}.json"), "w") as f:
+        json.dump({"shape": list(images.shape), "complete": True}, f)
+    return key
+
+
 def load_decode_cache(img_dir: str, ids, native_size: tuple[int, int],
                       cache_dir: str) -> ArraySource:
     """The decoded images of ``ids`` under ``img_dir``, memory-mapped from

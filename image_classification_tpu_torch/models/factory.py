@@ -4,6 +4,7 @@ item 12)."""
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import torch
@@ -16,6 +17,8 @@ from image_classification_tpu_torch.models.convnext import (
 from image_classification_tpu_torch.models.deep_supervision import (
     DeepSupervisionModel,
 )
+
+logger = logging.getLogger("ic_tpu_torch")
 
 
 def _family(name: str) -> str:
@@ -69,3 +72,24 @@ def create_model(cfg, model_name: str | None = None,
     init_convnext_(module, generator)
     return ModelBundle(name=name, module=module.eval(), deep_supervised=deep,
                        input_size=tuple(cfg.image_size))
+
+
+def load_pretrained_into(model: nn.Module, cfg) -> nn.Module:
+    """Import the local checkpoint ``cfg.pretrained_path`` into ``model`` in
+    place (``models/pretrained.py:load_checkpoint_into``); keeps the random
+    init when ``cfg.pretrained`` is off or the file is missing."""
+    if not cfg.pretrained:
+        return model
+    path = cfg.pretrained_path
+    if not path:
+        logger.warning("pretrained=True but no pretrained_path set; using random "
+                       "init (no network download path exists).")
+        return model
+    from image_classification_tpu_torch.models.pretrained import load_checkpoint_into
+
+    try:
+        load_checkpoint_into(model, path,
+                             strip_head=getattr(cfg, "pretrained_strip_head", False))
+    except FileNotFoundError:
+        logger.warning("pretrained checkpoint %s not found; random init", path)
+    return model

@@ -10,6 +10,15 @@ tensors equal ``export_convnext``'s: flax conv kernels HWIO become OIHW (the
 depthwise ``(7, 7, 1, C)`` becomes ``(C, 1, 7, 7)``) and Dense ``(in, out)``
 becomes Linear ``(out, in)``. Depths are read from the tree.
 
+``load_pretrained_into(model, cfg)`` imports a local timm-keyed checkpoint
+file (``cfg.pretrained_path``) into a freshly initialised model, as the JAX
+package's ``load_checkpoint_into_variables`` does: nested
+``model_state_dict``/``state_dict``/``model`` entries are unwrapped, the
+classifier keys are dropped with ``pretrained_strip_head``, tensors whose
+shapes differ from the model's are skipped, the backbone of a
+deep-supervised model takes the timm keys (its aux heads keep their init),
+and a missing file leaves the random init with a warning.
+
 ``train_state_from_jax`` carries a whole train state the same way: the
 parameters, the EMA shadow and Adam's ``mu`` and ``nu`` (trees shaped like
 the parameters) become tensors aligned with ``model.named_parameters()``,
@@ -19,10 +28,17 @@ one non-trivial optimizer state.
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("ic_tpu_torch")
+
+# The final classifier's keys (what timm strips when num_classes differs).
+_HEAD_KEYS = ("head.fc.weight", "head.fc.bias")
 
 
 def _conv(w) -> np.ndarray:  # flax HWIO -> torch OIHW
@@ -111,3 +127,46 @@ def train_state_from_jax(model: torch.nn.Module, params: Mapping[str, Any],
     return TrainState(step=int(step), model=model, mu=aligned(mu),
                       nu=aligned(nu), count=int(count),
                       ema=None if ema is None else aligned(ema))
+
+
+def load_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The tensors of a ``.pt``/``.pth`` or ``.safetensors`` file, with a
+    nested ``model_state_dict``/``state_dict``/``model`` unwrapped."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return dict(load_file(path))
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for wrap in ("model_state_dict", "state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(wrap), dict):
+            obj = obj[wrap]
+    return {k: torch.as_tensor(v) for k, v in obj.items()}
+
+
+@torch.no_grad()
+def load_checkpoint_into(model: torch.nn.Module, path: str,
+                         strip_head: bool = False) -> int:
+    """Copy the timm-keyed tensors of ``path`` into ``model`` in place;
+    returns how many were loaded. ``dwconv`` is read as ``conv_dw``."""
+    sd = load_state_dict(path)
+    if strip_head:
+        sd = {k: v for k, v in sd.items() if k not in _HEAD_KEYS}
+    params = dict(model.named_parameters())
+    prefix = "backbone." if any(k.startswith("backbone.") for k in params) else ""
+    n = 0
+    for key, val in sd.items():
+        target = params.get(prefix + key.replace(".dwconv.", ".conv_dw."))
+        if target is None:
+            continue
+        if tuple(target.shape) != tuple(val.shape):
+            logger.warning("skip %s: shape %s vs %s (classifier-strip semantics)",
+                           key, tuple(val.shape), tuple(target.shape))
+            continue
+        target.copy_(val.to(target.dtype))
+        n += 1
+    logger.info("loaded %d tensors from %s", n, path)
+    if n == 0:
+        logger.warning("no tensors matched; check checkpoint naming")
+    return n

@@ -4,8 +4,9 @@ A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``. The forward ops (``block_mlp``,
 ``depthwise_conv7x7``, ``gelu``) are differentiable: under autograd their
-backwards call the backward wrappers (``*_bwd``). ``warp`` (the augmentation's
-bilinear resampling) is forward only.
+backwards call the backward wrappers (``*_bwd``; at large maps the depthwise
+backward calls the forward and ``depthwise_conv7x7_wgrad``). ``warp`` (the
+augmentation's bilinear resampling) is forward only.
 """
 
 from image_classification_tpu_torch.ops.block_mlp import (
@@ -22,6 +23,8 @@ from image_classification_tpu_torch.ops.dwconv import (
     depthwise_conv7x7_bwd,
     depthwise_conv7x7_bwd_reference,
     depthwise_conv7x7_reference,
+    depthwise_conv7x7_wgrad,
+    depthwise_conv7x7_wgrad_reference,
 )
 from image_classification_tpu_torch.ops.gelu import (
     gelu,
@@ -32,7 +35,8 @@ from image_classification_tpu_torch.ops.gelu import (
 from image_classification_tpu_torch.ops.warp import warp, warp_reference
 
 KERNEL_WRAPPERS = (depthwise_conv7x7, block_mlp, gelu,
-                   depthwise_conv7x7_bwd, block_mlp_bwd, gelu_bwd, warp)
+                   depthwise_conv7x7_bwd, block_mlp_bwd, gelu_bwd, warp,
+                   depthwise_conv7x7_wgrad)
 
 __all__ = [
     "KERNEL_WRAPPERS",
@@ -47,6 +51,8 @@ __all__ = [
     "depthwise_conv7x7_bwd",
     "depthwise_conv7x7_bwd_reference",
     "depthwise_conv7x7_reference",
+    "depthwise_conv7x7_wgrad",
+    "depthwise_conv7x7_wgrad_reference",
     "gelu",
     "gelu_bwd",
     "gelu_grad_reference",

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``. The build runs on first use (never
-at import), writes under ``image_classification_tpu_torch/_build/`` (listed in
+Each ``csrc/*.cu`` source compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs on first use (never at
+import), writes under ``image_classification_tpu_torch/_build/`` (listed in
 ``.gitignore``), and is keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads in milliseconds. It needs the CUDA
 toolkit; nothing here runs on a machine without it.
@@ -30,7 +31,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 # Must match csrc/common.cuh IcDtype.
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "ic_dwconv7x7_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ic_dwconv7x7_bwd_groups": ([_I, _I, _I, _I], _I),
     "ic_dwconv7x7_bwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "ic_dwconv7x7_wgrad": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "ic_block_mlp_fwd": ([_P] * 14 + [_I64, _I, _I, _F, _I, _P], _I),
     "ic_block_mlp_bwd_scratch": ([_I64, _I, _I, _I], _I64),
     "ic_block_mlp_bwd": ([_P] * 22 + [_I64, _I, _I, _F, _I, _P], _I),
@@ -80,22 +82,30 @@ def build() -> tuple[Path, float]:
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    # Compile to a private name, then rename: a concurrent build or reader
-    # never sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    # Private names, then a rename: a concurrent build or reader never sees a
+    # half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [src.name for src, p in zip(cu, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", f"{tmp}/lib.so", *map(str, objs)],
+                capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
+        seconds = time.perf_counter() - t0
+        (BUILD_DIR / "build.log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
+        os.replace(f"{tmp}/lib.so", so)
     return so, seconds
 
 

@@ -19,10 +19,19 @@ casts ``w`` outside :class:`_DwconvFunction`, where autograd sees it. The
 conv bias is added by the caller (``models/convnext.py``), as in
 ``models/layers.py:PallasDWConv``.
 
+The backward routes as ``_bwd_pallas`` does: where the TPU kernel's VMEM
+estimate of one image (:func:`_bwd_bytes_per_image`) passes its budget
+(:data:`_VMEM_BUDGET`), as at stage 0 of ConvNeXt-L at 260 px, ``dx`` is the
+forward conv of ``g`` with the flipped filter and ``dw`` comes from the
+wgrad-only :func:`depthwise_conv7x7_wgrad`; elsewhere the fused backward
+computes both. The H100 has no such limit; the split is kept so that both
+packages run the same kernels at each shape.
+
 On a CPU tensor the wrappers run the plain versions
-(:func:`depthwise_conv7x7_reference`, :func:`depthwise_conv7x7_bwd_reference`);
-on a CUDA tensor they launch the hand-written kernels of ``csrc/dwconv7x7.cu``
-(see the note at its top), or raise.
+(:func:`depthwise_conv7x7_reference`, :func:`depthwise_conv7x7_wgrad_reference`,
+:func:`depthwise_conv7x7_bwd_reference`); on a CUDA tensor they launch the
+hand-written kernels of ``csrc/dwconv7x7.cu`` (see the note at its top), or
+raise.
 """
 
 from __future__ import annotations
@@ -32,6 +41,22 @@ import torch.nn.functional as F
 
 K = 7
 PAD = K // 2
+
+# Mirrors image_classification_tpu/ops/dwconv.py: _bwd_pallas splits the
+# backward where _bwd_bytes_per_image(H, W, C) > _VMEM_BUDGET.
+_VMEM_BUDGET = 16 * 1024 * 1024
+
+
+def _bwd_bytes_per_image(H: int, W: int, C: int) -> int:
+    """The TPU fused backward's scoped-VMEM estimate for one image."""
+    center, padded = H * W * C, (H + 2 * PAD) * (W + 2 * PAD) * C
+    return 12 * padded + 16 * center
+
+
+def bwd_is_split(H: int, W: int, C: int) -> bool:
+    """True where the backward runs as the forward on ``g`` (dx) plus the
+    wgrad-only kernel (dw), as ``_bwd_pallas`` does."""
+    return _bwd_bytes_per_image(H, W, C) > _VMEM_BUDGET
 
 
 def depthwise_conv7x7_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -47,20 +72,26 @@ def depthwise_conv7x7_bwd_reference(x: torch.Tensor, g: torch.Tensor,
     """Plain PyTorch version of the backward: ``(dx, dw)``, ``dx`` in x's
     dtype and ``dw`` ``(7, 7, C)`` in f32, with the kernel's rounding points."""
     dx = depthwise_conv7x7_reference(g.to(x.dtype), w.flip(0, 1))
+    return dx, depthwise_conv7x7_wgrad_reference(x, g)
+
+
+def depthwise_conv7x7_wgrad_reference(x: torch.Tensor,
+                                      g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the wgrad: ``dw`` (7, 7, C) f32, each product
+    taken in x's dtype and summed in f32."""
     B, H, W, C = x.shape
     xp = F.pad(x, (0, 0, PAD, PAD, PAD, PAD))
     g = g.to(x.dtype)
-    dw = torch.stack([
+    return torch.stack([
         torch.stack([(xp[:, i:i + H, j:j + W, :] * g).float().sum((0, 1, 2))
                      for j in range(K)])
         for i in range(K)])
-    return dx, dw
 
 
-def _check(name: str, x: torch.Tensor, w: torch.Tensor):
+def _check(name: str, x: torch.Tensor, w: torch.Tensor | None = None):
     from image_classification_tpu_torch.ops import _build
 
-    if x.dim() != 4 or tuple(w.shape) != (K, K, x.shape[-1]):
+    if x.dim() != 4 or (w is not None and tuple(w.shape) != (K, K, x.shape[-1])):
         raise ValueError(f"{name}: x {tuple(x.shape)} needs (B,H,W,C), "
                          f"w {tuple(w.shape)} needs (7,7,C)")
     if x.dtype not in _build.DTYPE_CODES:
@@ -89,16 +120,58 @@ def _dwconv_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _check_g(name: str, x: torch.Tensor, g: torch.Tensor) -> None:
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} must match "
+                         f"x {tuple(x.shape)} {x.dtype}")
+
+
+def depthwise_conv7x7_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dw`` (7, 7, C) f32 of the conv at ``x`` for the output gradient
+    ``g``, alone (the split backward's half of ``_wgrad_pallas``)."""
+    if x.device.type == "cpu":
+        return depthwise_conv7x7_wgrad_reference(x, g)
+    B, H, W, C = x.shape
+    _build = _check("depthwise_conv7x7_wgrad", x)
+    _check_g("depthwise_conv7x7_wgrad", x, g)
+    _build.require_cuda("depthwise_conv7x7_wgrad", x, g)
+    dw = torch.zeros((K, K, C), dtype=torch.float32, device=x.device)
+    if x.numel():
+        lib = _build.library()
+        groups = lib.ic_dwconv7x7_bwd_groups(B, H, W, C)
+        partial = torch.empty((groups, K * K, C), dtype=torch.float32,
+                              device=x.device)
+        with torch.cuda.device(x.device):
+            code = lib.ic_dwconv7x7_wgrad(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                groups, B, H, W, C, _build.DTYPE_CODES[x.dtype],
+                _build.stream_ptr(x))
+        _build.check(code, "depthwise_conv7x7_wgrad")
+        depthwise_conv7x7_wgrad.launches += 1
+    return dw
+
+
 def depthwise_conv7x7_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor):
     """``(dx, dw)`` of the conv at ``x`` for the output gradient ``g``:
     ``dx`` like ``x``, ``dw`` ``(7, 7, C)`` f32 (not yet rounded to ``w``'s
-    dtype)."""
+    dtype). Where :func:`bwd_is_split`, the forward conv of ``g`` with the
+    flipped filter and :func:`depthwise_conv7x7_wgrad`; elsewhere the fused
+    backward, whose launches alone this wrapper counts."""
+    B, H, W, C = x.shape
+    if bwd_is_split(H, W, C):
+        _check_g("depthwise_conv7x7_bwd", x, g)
+        dx = _dwconv_forward(g, w.to(x.dtype).flip(0, 1).contiguous())
+        return dx, depthwise_conv7x7_wgrad(x, g)
+    return fused_bwd(x, g, w)
+
+
+def fused_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor):
+    """The fused backward at any shape (:func:`depthwise_conv7x7_bwd` routes
+    the large maps elsewhere); counts on ``depthwise_conv7x7_bwd``."""
     if x.device.type == "cpu":
         return depthwise_conv7x7_bwd_reference(x, g, w)
     _build = _check("depthwise_conv7x7_bwd", x, w)
-    if g.shape != x.shape or g.dtype != x.dtype:
-        raise ValueError(f"depthwise_conv7x7_bwd: g {tuple(g.shape)} "
-                         f"{g.dtype} must match x {tuple(x.shape)} {x.dtype}")
+    _check_g("depthwise_conv7x7_bwd", x, g)
     w = w.to(x.dtype).contiguous()
     _build.require_cuda("depthwise_conv7x7_bwd", x, g, w)
     B, H, W, C = x.shape
@@ -142,3 +215,4 @@ def depthwise_conv7x7(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 depthwise_conv7x7.launches = 0
 depthwise_conv7x7_bwd.launches = 0
+depthwise_conv7x7_wgrad.launches = 0

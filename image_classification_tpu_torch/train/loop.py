@@ -1,12 +1,75 @@
-"""The parts of ``image_classification_tpu/train/loop.py`` the train and eval
-steps need: ``build_lr_schedule`` and ``evaluate``. ``train_fold`` (early
-stop, checkpoints, the epoch loop) comes with the augmentation slice
-(ROADMAP queue A, item 10)."""
+"""The host-side epoch loop of one fold, port of
+``image_classification_tpu/train/loop.py``: ``train_fold`` (the epoch loop
+under a :class:`StepTimer`, validation on the EMA weights, ``metrics.jsonl``,
+best-acc and best-loss checkpoints, patience early stop, the plateau
+schedule, LR recording, full-state checkpoints and resume),
+``build_lr_schedule``, ``progressive_size`` and ``evaluate``.
+
+Random numbers: JAX's threefry keys cannot be reproduced in torch. A fold's
+initial weights come from a ``torch.Generator`` seeded from
+``(cfg.seed, fold)``; a step's augmentation and mix draws from a generator on
+the card seeded from ``(cfg.seed, fold, "steps", step)`` (the JAX step folds
+the step into its key the same way), so a resumed fold draws what the
+straight run drew. The epoch orders are the JAX package's (numpy samplers).
+
+Not ported: the compiled-step sharing across folds (``program_sig`` /
+``shared``), which exists to reuse XLA compiles, and SWA, whose batch-norm
+step serves EfficientNet (not ported).
+"""
 
 from __future__ import annotations
 
-from image_classification_tpu_torch.train.schedule import warmup_cosine_schedule
+import contextlib
+import json
+import logging
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from image_classification_tpu_torch.models.factory import (
+    ModelBundle,
+    create_model,
+    load_pretrained_into,
+)
+from image_classification_tpu_torch.train.loss import build_criterion
+from image_classification_tpu_torch.train.optim import build_optimizer, set_learning_rate
+from image_classification_tpu_torch.train.schedule import (
+    PlateauScheduler,
+    warmup_cosine_schedule,
+)
+from image_classification_tpu_torch.train.step import make_eval_step, make_train_step
+from image_classification_tpu_torch.train.train_state import create_train_state
+from image_classification_tpu_torch.utils import checkpoint as ckpt
+from image_classification_tpu_torch.utils.lr_monitor import LRMonitor
 from image_classification_tpu_torch.utils.metrics import macro_f1, per_class_f1
+from image_classification_tpu_torch.utils.profiler import StepTimer, sync, trace
+
+logger = logging.getLogger("ic_tpu_torch")
+
+
+@dataclass
+class FoldResult:
+    fold: int
+    best_val_acc: float
+    best_variables: dict[str, torch.Tensor]   # the best weights, a state dict on the host
+    bundle: ModelBundle                       # the fold's model, with its last weights
+    history: list[dict] = field(default_factory=list)
+
+
+def derived_seed(*words: int | str) -> int:
+    """A 63-bit seed from integers and strings (a string counts as the
+    integer of its UTF-8 bytes), through numpy's SeedSequence."""
+    ints = [w if isinstance(w, int) else int.from_bytes(w.encode(), "little")
+            for w in words]
+    return int(np.random.SeedSequence(ints).generate_state(1, np.uint64)[0] >> 1)
+
+
+def _append_metrics(output_dir: str, fold: int, record: dict) -> None:
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "metrics.jsonl"), "a") as f:
+        f.write(json.dumps({"fold": fold, **record}) + "\n")
 
 
 def build_lr_schedule(cfg, steps_per_epoch: int):
@@ -24,6 +87,19 @@ def build_lr_schedule(cfg, steps_per_epoch: int):
         total = steps_per_epoch * cfg.epochs
     warmup = int(total * cfg.warmup_ratio)
     return warmup_cosine_schedule(cfg.lr, warmup, total, cfg.min_lr)
+
+
+def progressive_size(cfg, epoch: int) -> tuple[int, int]:
+    """Training input size for ``epoch`` under progressive resizing: earlier
+    epochs train at smaller (even-rounded) fractions of ``image_size``; the
+    final stage is always the full size."""
+    if not cfg.progressive_resizing:
+        return tuple(cfg.image_size)
+    scales = cfg.progressive_scales
+    idx = min(len(scales) - 1, epoch * len(scales) // max(1, cfg.epochs))
+    h = int(round(cfg.image_size[0] * scales[idx] / 2)) * 2
+    w = int(round(cfg.image_size[1] * scales[idx] / 2)) * 2
+    return (h, w)
 
 
 def evaluate(eval_step, state, loader) -> dict:
@@ -47,3 +123,218 @@ def evaluate(eval_step, state, loader) -> dict:
         "min_class_f1": float(f1[present].min()) if present.any() else 0.0,
         "confusion": cm,
     }
+
+
+def train_fold(cfg, train_loader, val_loader, fold: int = 1,
+               class_counts: np.ndarray | None = None, resume: bool = False,
+               model_name: str | None = None) -> FoldResult:
+    """Train one fold on ``train_loader``'s device, validating on
+    ``val_loader`` after every epoch; returns the best weights (by val
+    accuracy) and the per-epoch history."""
+    if cfg.use_swa:
+        raise NotImplementedError("use_swa: SWA and its batch-norm update step "
+                                  "are not ported (ROADMAP queue A, item 12)")
+    device = train_loader.device
+    steps_per_epoch = len(train_loader)
+    bundle = create_model(cfg, model_name, generator=torch.Generator().manual_seed(
+        derived_seed(cfg.seed, fold)))
+    load_pretrained_into(bundle.module, cfg)
+    bundle.module.to(device)
+    n_params = sum(p.numel() for p in bundle.module.parameters())
+    logger.info("fold %d: %s with %.2fM parameters", fold, bundle.name, n_params / 1e6)
+
+    criterion = build_criterion(
+        cfg, class_counts=None if class_counts is None
+        else torch.as_tensor(class_counts, device=device))
+    lr_schedule = build_lr_schedule(cfg, steps_per_epoch)
+    tx = build_optimizer(cfg, lr_schedule)
+    plateau = (PlateauScheduler(cfg.lr, cfg.plateau_factor, cfg.plateau_patience)
+               if cfg.schedule == "plateau" else None)
+    state = create_train_state(bundle.module, use_ema=cfg.use_ema)
+
+    start_epoch = 0
+    resumed_host: dict = {}
+    if resume:
+        restored = ckpt.load_train_state(cfg.output_dir, fold, state)
+        if restored is not None:
+            state, start_epoch, resumed_host = restored
+            logger.info("fold %d: resumed at epoch %d", fold, start_epoch)
+
+    # one train step per input size (progressive resizing); rebuilt when the
+    # plateau schedule sets a new LR
+    step_cache: dict[tuple[int, int], object] = {}
+
+    def train_step_for(epoch: int):
+        size = progressive_size(cfg, epoch)
+        if size not in step_cache:
+            step_cache[size] = make_train_step(bundle, cfg.replace(image_size=size),
+                                               tx, criterion)
+        return step_cache[size]
+
+    eval_step = make_eval_step(bundle, cfg, use_ema=cfg.ema_eval)
+    generator = (torch.Generator(device=device) if cfg.aug_enabled else None)
+    use_ema_eval = cfg.use_ema and cfg.ema_eval
+
+    # Host bookkeeping, restored on resume so a resumed fold is the exact
+    # continuation (no re-saving a worse "best", no patience reset).
+    best_val_acc = float(resumed_host.get("best_val_acc", -1.0))
+    best_val_loss = float(resumed_host.get("best_val_loss", float("inf")))
+    best_variables: dict = {}
+    patience_counter = int(resumed_host.get("patience_counter", 0))
+    if plateau is not None and resumed_host.get("plateau"):
+        plateau.load_state_dict(resumed_host["plateau"])
+        tx = set_learning_rate(tx, plateau.lr)
+    if best_val_acc > -1.0:
+        # the on-disk best, so the result carries it even if no epoch after
+        # the resume improves on it
+        try:
+            best_variables, _ = ckpt.load_best(cfg.model_save_path, fold)
+        except FileNotFoundError:
+            logger.warning("fold %d: could not reload best checkpoint", fold)
+    history: list[dict] = []
+    lr_monitor = LRMonitor()
+    # Background writer: device snapshots go to a thread that copies them to
+    # the host and writes while the next epoch trains.
+    writer = ckpt.AsyncCheckpointWriter()
+    best_box: dict = {}
+
+    def current_lr() -> float:
+        return plateau.lr if plateau is not None else tx.schedule(state.step)
+
+    for epoch in range(start_epoch, cfg.epochs):
+        train_loader.set_epoch(epoch)
+        train_step = train_step_for(epoch)
+        timer = StepTimer()
+        losses, accs = [], []
+        it = iter(train_loader)
+        profiled = bool(cfg.profile_dir) and epoch == start_epoch + 1
+        region = (trace(cfg.profile_dir, f"fold{fold}_epoch{epoch + 1}")
+                  if profiled else contextlib.nullcontext())
+        with region:
+            step_i = 0
+            while True:
+                with timer.data_wait():
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                if generator is not None:
+                    generator.manual_seed(derived_seed(cfg.seed, fold, "steps",
+                                                       state.step))
+                with timer.compute(n_images=batch["image"].shape[0]):
+                    state, metrics = train_step(state, batch, generator=generator)
+                losses.append(metrics["loss"])
+                accs.append(metrics["accuracy"])
+                step_i += 1
+                # the device read happens only at log points
+                if cfg.log_interval > 0 and step_i % cfg.log_interval == 0:
+                    logger.info(
+                        "fold %d epoch %d step %d/%d: loss %.4f acc %.4f "
+                        "lr %.2e (%.1f img/s)", fold, epoch + 1, step_i,
+                        steps_per_epoch, float(metrics["loss"]),
+                        float(metrics["accuracy"]), current_lr(),
+                        timer.images_per_sec)
+            sync(device)   # the last step, before the clock is read
+        perf = timer.summary()  # the train window only, before validation
+        train_loss = float(np.mean(torch.stack(losses).tolist())) if losses else 0.0
+        train_acc = float(np.mean(torch.stack(accs).tolist())) if accs else 0.0
+
+        val = evaluate(eval_step, state, val_loader)
+        record = {
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "train_acc": train_acc,
+            "val_loss": val["loss"],
+            "val_acc": val["accuracy"],
+            "val_macro_f1": val["macro_f1"],
+            "val_min_class_f1": val["min_class_f1"],
+            **perf,
+        }
+        history.append(record)
+        _append_metrics(cfg.output_dir, fold, record)
+        logger.info(
+            "fold %d epoch %d/%d: train %.4f/%.4f val %.4f/%.4f f1 %.4f "
+            "(%.1f img/s, duty %.1f%%)", fold, epoch + 1, cfg.epochs, train_loss,
+            train_acc, val["loss"], val["accuracy"], val["macro_f1"],
+            perf["images_per_sec"], 100 * perf["duty_cycle"])
+
+        improved_acc = val["accuracy"] > best_val_acc
+        improved_loss = cfg.save_best_loss and val["loss"] < best_val_loss
+        if improved_acc:
+            best_val_acc = val["accuracy"]
+            patience_counter = 0
+        else:
+            patience_counter += 1
+        if improved_loss:
+            best_val_loss = val["loss"]
+        if improved_acc or improved_loss:
+            # one snapshot serves both tiers (the same weights this epoch)
+            weights = state.eval_params(use_ema=use_ema_eval)
+
+            def best_job(w, acc=val["accuracy"], loss=val["loss"],
+                         ia=improved_acc, il=improved_loss) -> dict:
+                host = ckpt.to_host(w)
+                if ia:
+                    ckpt.save_best(cfg.model_save_path, fold, host, acc, val_loss=loss)
+                if il:
+                    ckpt.save_best(cfg.model_save_path, fold, host, acc,
+                                   val_loss=loss, metric="loss")
+                return host
+
+            if cfg.async_checkpoint:
+                def run_async(w=ckpt.snapshot(weights), job=best_job,
+                              ia=improved_acc) -> None:
+                    host = job(w)
+                    if ia:
+                        best_box["variables"] = host
+                writer.submit(run_async)
+            else:
+                host = best_job(weights)
+                if improved_acc:
+                    best_variables = host
+
+        # the plateau step before the epoch checkpoint, so the new LR and the
+        # scheduler's internals are part of the resumable state
+        if plateau is not None:
+            metric = train_acc if cfg.plateau_metric == "train_acc" else val["accuracy"]
+            tx = set_learning_rate(tx, plateau.step(metric))
+            step_cache.clear()
+
+        lr_monitor.record(state.step, current_lr())
+
+        stopping = patience_counter >= cfg.patience
+        if cfg.save_state_every > 0 and (
+                (epoch + 1 - start_epoch) % cfg.save_state_every == 0
+                or epoch == cfg.epochs - 1 or stopping):
+            host_state = {
+                "best_val_acc": best_val_acc,
+                "best_val_loss": best_val_loss,
+                "patience_counter": patience_counter,
+                "plateau": plateau.state_dict() if plateau is not None else None,
+            }
+            if cfg.async_checkpoint:
+                writer.submit(ckpt.save_train_state, cfg.output_dir, fold,
+                              ckpt.snapshot(ckpt.state_tree(state)), epoch, cfg,
+                              host_state=host_state)
+            else:
+                ckpt.save_train_state(cfg.output_dir, fold, state, epoch, cfg,
+                                      host_state=host_state)
+
+        if stopping:
+            logger.info("fold %d: early stopping after epoch %d", fold, epoch + 1)
+            break
+
+    # every pending write lands before the result is assembled
+    writer.join()
+    if "variables" in best_box:
+        best_variables = best_box["variables"]
+
+    if lr_monitor.lrs:
+        try:
+            lr_monitor.plot(os.path.join(cfg.output_dir, f"lr_curve_fold{fold}.png"))
+        except Exception as e:  # plotting must never kill a training run
+            logger.debug("fold %d: LR plot skipped (%s)", fold, e)
+
+    if not best_variables:  # zero epochs or all NaN: the final weights
+        best_variables = ckpt.to_host(dict(zip(state.names(), state.params())))
+    return FoldResult(fold=fold, best_val_acc=best_val_acc,
+                      best_variables=best_variables, bundle=bundle, history=history)

@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 
 from image_classification_tpu.ops.block_mlp import block_mlp as jax_block_mlp
+from image_classification_tpu.ops import dwconv as jax_dwconv_mod
 from image_classification_tpu.ops.dwconv import depthwise_conv7x7 as jax_dwconv
 from image_classification_tpu.ops.gelu import gelu_erf_free_pallas
 from image_classification_tpu_torch.ops import (
@@ -35,12 +36,17 @@ from image_classification_tpu_torch.ops import (
     block_mlp_fwd_reference,
     block_mlp_reference,
     depthwise_conv7x7,
+    depthwise_conv7x7_bwd,
     depthwise_conv7x7_bwd_reference,
     depthwise_conv7x7_reference,
+    depthwise_conv7x7_wgrad,
+    depthwise_conv7x7_wgrad_reference,
     gelu,
     gelu_grad_reference,
     gelu_reference,
 )
+
+from image_classification_tpu_torch.ops import dwconv as dwconv_mod
 
 from test_torch_ops import _block_inputs
 
@@ -123,6 +129,66 @@ def test_dwconv_bwd_matches_jax_pallas_vjp(shape, dtype):
     rel = 1e-5 if dtype == "float32" else BF16_REL
     _close(dx, rdx, rel, "dx")
     _close(dw, rdw, rel, "dw")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dwconv_wgrad_matches_jax_wgrad_pallas(dtype):
+    """The wgrad-only plain version against ``_wgrad_pallas`` (interpret
+    mode), summed in f32 in another order. In bf16 the port rounds each
+    product to bf16, as the kernel multiplies its bf16 tiles, while XLA on
+    the CPU keeps the interpret-mode products in f32: the sums then differ
+    by ~2^-9 of a product per term, at random signs, which BF16_REL bounds;
+    the same sums over unrounded products agree to f32 noise."""
+    rng = np.random.default_rng(23)
+    shape = (2, 9, 11, 40)
+    jdt = jnp.dtype(dtype)
+    x = jnp.asarray(rng.normal(size=shape).astype(np.float32)).astype(jdt)
+    g = jnp.asarray(rng.normal(size=shape).astype(np.float32)).astype(jdt)
+    ref = _np(jax_dwconv_mod._wgrad_pallas(x, g, interpret=True))
+    tdt = getattr(torch, dtype)
+    xt, gt = _t(_np(x), tdt), _t(_np(g), tdt)
+    for fn in (depthwise_conv7x7_wgrad, depthwise_conv7x7_wgrad_reference):
+        dw = fn(xt, gt)
+        assert dw.shape == (7, 7, 40) and dw.dtype == torch.float32
+        _close(dw, ref, 1e-5 if dtype == "float32" else BF16_REL, fn.__name__)
+    _close(depthwise_conv7x7_wgrad_reference(xt.float(), gt.float()), ref, 1e-5,
+           "f32 products")
+
+
+@pytest.mark.parametrize("hwc,split", [
+    ((65, 65, 128), False),    # ConvNeXt-B stage 0 at 260 px: 16,395,776 B
+    ((66, 66, 128), True),     # ConvNeXt-B stage 0 at 264 px: 16,883,712 B
+    ((65, 65, 192), True),     # ConvNeXt-L stage 0 at 260 px: 24,593,664 B
+    ((33, 33, 384), False),    # ConvNeXt-L stage 1 at 260 px: 13,699,584 B
+])
+def test_dwconv_bwd_routes_like_jax(hwc, split, monkeypatch):
+    """Where ``_bwd_pallas`` splits, the port runs the forward on g with the
+    flipped filter and the wgrad-only kernel; elsewhere the fused one."""
+    assert (jax_dwconv_mod._bwd_bytes_per_image(*hwc) > jax_dwconv_mod._VMEM_BUDGET) == split
+    assert dwconv_mod._bwd_bytes_per_image(*hwc) == jax_dwconv_mod._bwd_bytes_per_image(*hwc)
+    assert dwconv_mod.bwd_is_split(*hwc) == split
+    calls = []
+    monkeypatch.setattr(dwconv_mod, "fused_bwd", lambda *a: calls.append("fused") or (0, 0))
+    monkeypatch.setattr(dwconv_mod, "_dwconv_forward", lambda *a: calls.append("forward"))
+    monkeypatch.setattr(dwconv_mod, "depthwise_conv7x7_wgrad", lambda *a: calls.append("wgrad"))
+    x = torch.empty(1, *hwc)
+    dwconv_mod.depthwise_conv7x7_bwd(x, torch.empty_like(x), torch.empty(7, 7, hwc[2]))
+    assert calls == (["forward", "wgrad"] if split else ["fused"])
+
+
+def test_dwconv_bwd_split_route_matches_jax_bwd_pallas():
+    """At 1x17x17x1536 (10,972 * 1536 = 16,852,992 B: split) the port's
+    backward against ``_bwd_pallas`` (interpret mode), in f32."""
+    rng = np.random.default_rng(29)
+    shape = (1, 17, 17, 1536)
+    assert dwconv_mod.bwd_is_split(*shape[1:])
+    x, g = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    w = (rng.normal(size=(7, 7, shape[-1])) * 0.2).astype(np.float32)
+    rdx, rdw = (_np(v) for v in jax_dwconv_mod._bwd_pallas(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(w), interpret=True))
+    dx, dw = depthwise_conv7x7_bwd(_t(x), _t(g), _t(w))
+    _close(dx, rdx, 1e-5, "dx")
+    _close(dw, rdw, 1e-5, "dw")
 
 
 def test_dwconv_bwd_matches_autograd_of_plain_forward():

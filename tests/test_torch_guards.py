@@ -57,11 +57,16 @@ def test_validation_errors_match_jax(override):
 
 
 def test_port_and_chip_smoke_import_without_jax():
+    """The machine with the card has no jax, sklearn, orbax, matplotlib,
+    pandas or cv2: the port and chip_smoke.py import with each blocked."""
     names = [m.name for m in pkgutil.walk_packages(
         image_classification_tpu_torch.__path__, "image_classification_tpu_torch.")]
     assert "image_classification_tpu_torch.ops.block_mlp" in names
+    assert "image_classification_tpu_torch.train.kfold" in names
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys\n"
+        "for m in ('jax', 'sklearn', 'orbax', 'matplotlib', 'pandas', 'cv2'):\n"
+        "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
         "import chip_smoke\n"

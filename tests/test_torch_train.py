@@ -44,7 +44,7 @@ from image_classification_tpu_torch.models.pretrained import train_state_from_ja
 from image_classification_tpu_torch.train import loss
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
-from image_classification_tpu_torch.train.optim import build_optimizer
+from image_classification_tpu_torch.train.optim import build_optimizer, set_learning_rate
 from image_classification_tpu_torch.train.schedule import (
     PlateauScheduler,
     warmup_cosine_schedule,
@@ -325,8 +325,10 @@ def test_plateau_scheduler_matches_jax():
 
 def test_optimizer_refuses_what_is_not_ported():
     _, cfg = both_cfgs()
-    with pytest.raises(NotImplementedError):
-        build_optimizer(cfg.replace(schedule="plateau"), 1e-3)
+    # the plateau schedule is ported: a constant LR that the trainer resets
+    plateau = build_optimizer(cfg.replace(schedule="plateau"), 1e-3)
+    assert plateau.schedule(7) == 1e-3
+    assert set_learning_rate(plateau, 2.5e-4).schedule(7) == 2.5e-4
     with pytest.raises(NotImplementedError):
         build_optimizer(cfg.replace(freeze_stages=1), 1e-3)
     with pytest.raises(ValueError):
