@@ -14,7 +14,8 @@ versions in f32:
   augmentation and MixUp/CutMix, gradient accumulation 2, clip, AdamW and EMA
   (``configs/v4.json`` as it is); then, timing only, the same batches
   augmented beforehand through the step with the aug off; then an eval step
-  on the EMA weights;
+  on the EMA weights through the loader, under the profiler, which must see
+  no pageable host-to-device copy;
 * predict: ``cli predict``, 2 fold models, scale4 TTA;
 * train entry: ``cli train`` on ``configs/v4.json`` with
   ``model_name=convnext_large`` (full width and depth), 2 folds of 2 epochs
@@ -97,6 +98,7 @@ from image_classification_tpu_torch.train.step import (
     make_train_step,
 )
 from image_classification_tpu_torch.train.train_state import create_train_state
+from image_classification_tpu_torch.utils.profiler import device_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL = "convnext_base"
@@ -206,11 +208,36 @@ ENTRY_MODEL = "convnext_large"
 ENTRY_DEPTHS, ENTRY_DIMS = CONVNEXT_CONFIGS[ENTRY_MODEL]
 WGRAD_SHAPE = (MICRO, STAGE_HW[0], STAGE_HW[0], ENTRY_DIMS[0])
 WGRAD_SMALL = (3, 13, 17, 40)
-# The split route against the fused kernel on the same inputs: dx is the
-# same stencil over the same flipped taps, and dw the same partials summed
-# in the same order, so both should agree to the bit; the bounds allow one
-# bf16 ulp of dx and f32 noise in dw.
+# Where the forward stencil and the wgrad-only kernel can break, beyond the
+# main path: V2's stage 0 at 60x80 input (15x20), maps smaller than the
+# kernel, an odd small map, a map wider than the wgrad's 65-column strip,
+# and a grid that takes the forward's wide launch with an odd C and a map
+# wider than its 72-column strip (element copies, two strips, the last one
+# partial); each in bf16 and f32. The CPU tests hold the plain versions to
+# JAX at the first five.
+EDGE_SHAPES = ((2, 15, 20, 128), (2, 3, 5, 40), (2, 1, 1, 40), WGRAD_SMALL,
+               (1, 9, 70, 40), (128, 80, 80, 41))
+# The split route against the fused kernel on the same inputs. The two share
+# no code: dx is the forward stencil over the flipped taps against the fused
+# kernel's own stencil, both f32 sums of the same 49 products rounded once,
+# so at most one bf16 ulp apart; dw sums the same bf16-rounded products in
+# another order (chunks of 13 columns, runs of rows, a fixed tree against the
+# fused kernel's rows, tiles and block order), so the two differ by f32
+# rounding alone, which the first run on an H100 measured at 4.9e-7 of the
+# largest element (the fused kernel's long chain of 171 partials the larger
+# share); the bound is 1e-6.
 SPLIT_DW_REL_TOL = 1e-6
+# The earlier designs' device times at the main path's shapes (ms a launch,
+# bf16; the mean of two runs of image_classification_tpu_torch/tools/
+# time_dwconv.py on a checkout of the earlier designs, NVIDIA H100 80GB HBM3
+# at 700 W), printed beside this run's.
+EARLIER_MS = {
+    ("dwconv", (256, 65, 65, 128)): 1.3439, ("dwconv", (256, 33, 33, 256)): 0.7947,
+    ("dwconv", (256, 17, 17, 512)): 0.5380, ("dwconv", (256, 9, 9, 1024)): 0.4266,
+    ("dwconv", (16, 65, 65, 192)): 0.1321, ("dwconv", (16, 33, 33, 384)): 0.0755,
+    ("dwconv", (16, 17, 17, 768)): 0.0510, ("dwconv", (16, 9, 9, 1536)): 0.0411,
+    ("dwconv_wgrad", (16, 65, 65, 192)): 0.2805,
+}
 # A synthetic 44-class set with a long tail (class k has 1 + a share
 # proportional to 0.9^k of the rest; the last classes have 1 sample, as the
 # real data has), 2 folds of 2 epochs: ~128 train images a fold, 4 steps an
@@ -251,23 +278,6 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` a call over ``iters`` calls, from
-    torch.profiler: the kernels' own time. For a kernel of a few µs the
-    CUDA-event mean of back-to-back calls is bounded by the host's launch
-    rate instead."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
-
-
 def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in bf16 units in the last place between a and b."""
     def ordered(t):
@@ -304,7 +314,9 @@ class KernelTable:
     """Per kernel: error, kernel / plain / library times and the bound, each
     summed over ``per`` launches at each timed shape. The table that the
     ``kernels`` line prints holds one optimizer step of the train entry's
-    model, whose run gives the line its launches."""
+    model, whose run gives the line its launches. Kernel and library times
+    are device times (kernel_and_library_ms) for every row; plain times, of
+    tens of PyTorch ops, are CUDA-event means."""
 
     def __init__(self):
         self.rows = {}
@@ -313,11 +325,14 @@ class KernelTable:
             flops, flops_rate):
         bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                  "operations": flops / flops_rate * 1e3}
+        earlier = EARLIER_MS.get((name, shape))
         print(f"kernel {name} {shape} x{per}: max_abs_err={err:.6g} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{'-' if library_ms is None else f'{library_ms:.4f}'} "
               f"bound_ms={max(bound.values()):.4f} "
-              f"({max(bound, key=bound.get)})", flush=True)
+              f"({max(bound, key=bound.get)})"
+              + ("" if earlier is None else f" earlier_design_ms={earlier}"),
+              flush=True)
         row = self.rows.setdefault(name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "library_ms": None if library_ms is None else 0.0,
@@ -347,7 +362,7 @@ class KernelTable:
 
 
 KERNEL_META = {
-    "dwconv": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
+    "dwconv": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7_fwd_wgrad.cu",
                "image_classification_tpu/ops/dwconv.py:205"),
     "block_mlp": ("cuda", "image_classification_tpu_torch/csrc/block_mlp.cu",
                   "image_classification_tpu/ops/block_mlp.py:253"),
@@ -361,7 +376,7 @@ KERNEL_META = {
                  "image_classification_tpu/ops/gelu.py:109"),
     "warp": ("cuda", "image_classification_tpu_torch/csrc/warp.cu",
              "image_classification_tpu/ops/warp.py:68"),
-    "dwconv_wgrad": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
+    "dwconv_wgrad": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7_fwd_wgrad.cu",
                      "image_classification_tpu/ops/dwconv.py:223"),
 }
 WRAPPERS = {"dwconv": depthwise_conv7x7, "block_mlp": block_mlp, "gelu": gelu,
@@ -380,8 +395,13 @@ def read_launches() -> dict:
 
 
 def check_f32_paths(gen) -> None:
-    """Every kernel's f32 path at small odd shapes: the same kernels must
-    match their plain versions to f32 noise."""
+    """Every kernel's f32 path at small odd shapes, and the depthwise
+    forward's wide-group launch (a grid of 4,096 warps or more) in f32: the
+    same kernels must match their plain versions to f32 noise."""
+    x = randn(gen, 128, 9, 9, 1024, dtype=torch.float32)
+    w = randn(gen, 7, 7, 1024, dtype=torch.float32)
+    rel = max_rel(depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w))
+    require(rel <= 1e-5, f"dwconv f32 {tuple(x.shape)} rel err {rel}")
     x = randn(gen, 2, 9, 13, 40, dtype=torch.float32)
     w = randn(gen, 7, 7, 40, dtype=torch.float32)
     err = (depthwise_conv7x7(x, w) - depthwise_conv7x7_reference(x, w)).abs().max().item()
@@ -415,6 +435,44 @@ def check_f32_paths(gen) -> None:
         require(max_rel(ours, ref) <= 1e-5, f"block tail bwd f32 output {i}: "
                 f"{max_rel(ours, ref)}")
     print("f32 kernel paths agree with their plain versions", flush=True)
+
+
+def kernel_and_library_ms(what: str, kernel, library=None):
+    """Device time a call (``utils.profiler.device_ms``: 20 calls queued
+    behind a spin kernel, between CUDA events) of a kernel's wrapper and of
+    its library call (None where there is none), printed beside plain
+    CUDA-event means of back-to-back calls, which time the wrapper's host
+    work too where a kernel of tens of µs does not hide it. Every row of the
+    ``kernels`` line takes its ``ms`` and ``library_ms`` from here."""
+    ms = device_ms(kernel, 20)
+    lib_ms = None if library is None else device_ms(library, 20)
+    print(f"{what}: device time a call kernel {ms:.4f} ms, library "
+          f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms; CUDA events kernel "
+          f"{time_ms(kernel, 10):.4f} ms, library "
+          f"{'-' if library is None else f'{time_ms(library, 10):.4f}'} ms", flush=True)
+    return ms, lib_ms
+
+
+def check_edge_shapes(gen) -> None:
+    """The forward stencil and the wgrad-only kernel at EDGE_SHAPES in bf16
+    (1 ulp; dw within DW_REL_TOL) and f32 (1e-5, as check_f32_paths)."""
+    for shape in EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g = randn(gen, *shape, dtype=dtype), randn(gen, *shape, dtype=dtype)
+            w = randn(gen, 7, 7, shape[-1], scale=0.15, dtype=dtype)
+            y, ref = depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w)
+            dw, dref = depthwise_conv7x7_wgrad(x, g), depthwise_conv7x7_wgrad_reference(x, g)
+            rel = max_rel(dw, dref)
+            if dtype == torch.bfloat16:
+                err, ok = bf16_ulp_distance(y, ref), rel <= DW_REL_TOL
+                require(err <= ULP_TOL, f"dwconv {shape} bf16: {err} ulps")
+            else:
+                err, ok = (y - ref).abs().max().item(), rel <= 1e-5
+                require(err <= 1e-5, f"dwconv {shape} f32: err {err}")
+            require(ok, f"dwconv wgrad {shape} {dtype}: rel err {rel}")
+            print(f"dwconv {shape} {str(dtype)[6:]}: forward "
+                  f"{'ulps' if dtype == torch.bfloat16 else 'max abs err'} {err:.3g}, "
+                  f"wgrad max rel {rel:.3g}", flush=True)
 
 
 def library_dwconv(x, w):
@@ -457,18 +515,22 @@ def check_wgrad(table: KernelTable, gen) -> None:
     ulps, srel = bf16_ulp_distance(sdx, fdx), max_rel(sdw, fdw)
     split_ms = time_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 10)
     fused_ms = time_ms(lambda: dwconv_ops.fused_bwd(x, g, w), 10)
+    split_dev = device_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 20)
+    fused_dev = device_ms(lambda: dwconv_ops.fused_bwd(x, g, w), 20)
     print(f"dwconv bwd {WGRAD_SHAPE}: split route (forward on g + wgrad) "
-          f"{split_ms:.4f} ms, fused kernel {fused_ms:.4f} ms; split vs fused: "
+          f"{split_ms:.4f} ms, fused kernel {fused_ms:.4f} ms (CUDA events); "
+          f"device time {split_dev:.4f} and {fused_dev:.4f} ms; split vs fused: "
           f"dx {ulps} ulps, dw max rel {srel:.3g}; wgrad vs plain max rel "
           f"{max_rel(dw, ref):.3g}", flush=True)
     require(ulps <= ULP_TOL and srel <= SPLIT_DW_REL_TOL,
             f"split vs fused backward: dx {ulps} ulps, dw rel {srel}")
     n = x.numel()
+    ms, lib_ms = kernel_and_library_ms(f"dwconv wgrad {WGRAD_SHAPE}",
+                                       lambda: depthwise_conv7x7_wgrad(x, g),
+                                       library_dwconv_wgrad(x, g, w))
     table.add("dwconv_wgrad", WGRAD_SHAPE, ENTRY_DEPTHS[0] * ACCUM,
-              (dw - ref).abs().max().item(),
-              time_ms(lambda: depthwise_conv7x7_wgrad(x, g), 10),
-              time_ms(lambda: depthwise_conv7x7_wgrad_reference(x, g), 3),
-              time_ms(library_dwconv_wgrad(x, g, w), 10),
+              (dw - ref).abs().max().item(), ms,
+              time_ms(lambda: depthwise_conv7x7_wgrad_reference(x, g), 3), lib_ms,
               4 * n + 4 * dw.numel(), 2 * 49 * n, FP32_FLOPS)
 
 
@@ -482,6 +544,7 @@ def check_kernels() -> list[dict]:
     ``kernels`` line sums ConvNeXt-L's times over one optimizer step."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     check_f32_paths(gen)
+    check_edge_shapes(gen)
     for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, DIMS, DEPTHS)):
         print(f"{MODEL} stage {stage}:", flush=True)
         check_stage(KernelTable(), gen, stage, hw, c, VIEWS_BATCH, depth)
@@ -508,11 +571,12 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
     ulps = bf16_ulp_distance(y, ref)
     require(ulps <= ULP_TOL, f"dwconv stage {stage} {tuple(x.shape)}: {ulps} ulps")
     n = x.numel()
+    ms, lib_ms = kernel_and_library_ms(f"dwconv {tuple(x.shape)}",
+                                       lambda: depthwise_conv7x7(x, w),
+                                       library_dwconv(x, w))
     table.add("dwconv", tuple(x.shape), per * (1 + split),
-              (y.float() - ref.float()).abs().max().item(),
-              time_ms(lambda: depthwise_conv7x7(x, w), 10),
-              time_ms(lambda: depthwise_conv7x7_reference(x, w), 5),
-              time_ms(library_dwconv(x, w), 10),
+              (y.float() - ref.float()).abs().max().item(), ms,
+              time_ms(lambda: depthwise_conv7x7_reference(x, w), 5), lib_ms,
               4 * n, 2 * 49 * n, FP32_FLOPS)
     del x, y, ref
     if block_mlp_available(c):
@@ -522,8 +586,8 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
         err = (y.float() - ref.float()).abs().max().item()
         require(max_rel(y, ref) <= BLOCK_REL_TOL,
                 f"block tail stage {stage} {(m, c)}: rel err {max_rel(y, ref)}")
-        table.add("block_mlp", (m, c), per, err,
-                  time_ms(lambda: block_mlp(*args), 5),
+        ms, _ = kernel_and_library_ms(f"block tail {(m, c)}", lambda: block_mlp(*args))
+        table.add("block_mlp", (m, c), per, err, ms,
                   time_ms(lambda: block_mlp_reference(*args), 2), None,
                   6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
         del args, y, ref
@@ -532,11 +596,11 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
         y, ref = gelu(x), gelu_reference(x)
         ulps = bf16_ulp_distance(y, ref)
         require(ulps <= ULP_TOL, f"gelu {tuple(x.shape)}: {ulps} ulps")
+        ms, lib_ms = kernel_and_library_ms(f"gelu {tuple(x.shape)}", lambda: gelu(x),
+                                           lambda: torch.nn.functional.gelu(x))
         table.add("gelu", tuple(x.shape), per,
-                  (y.float() - ref.float()).abs().max().item(),
-                  time_ms(lambda: gelu(x), 20),
-                  time_ms(lambda: gelu_reference(x), 5),
-                  time_ms(lambda: torch.nn.functional.gelu(x), 20),
+                  (y.float() - ref.float()).abs().max().item(), ms,
+                  time_ms(lambda: gelu_reference(x), 5), lib_ms,
                   4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
         del x, y, ref
     torch.cuda.empty_cache()
@@ -554,11 +618,12 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
             "dwconv bwd: dw differs between two runs")
     n = x.numel()
     if not split:
+        ms, lib_ms = kernel_and_library_ms(f"dwconv bwd {tuple(x.shape)}",
+                                           lambda: depthwise_conv7x7_bwd(x, g, w),
+                                           library_dwconv_bwd(x, g, w))
         table.add("dwconv_bwd", tuple(x.shape), per,
-                  (dx.float() - rdx.float()).abs().max().item(),
-                  time_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 10),
-                  time_ms(lambda: depthwise_conv7x7_bwd_reference(x, g, w), 3),
-                  time_ms(library_dwconv_bwd(x, g, w), 10),
+                  (dx.float() - rdx.float()).abs().max().item(), ms,
+                  time_ms(lambda: depthwise_conv7x7_bwd_reference(x, g, w), 3), lib_ms,
                   6 * n, 4 * 49 * n, FP32_FLOPS)
     else:
         print(f"dwconv bwd {tuple(x.shape)} (split route): dx {ulps} ulps, dw max "
@@ -582,9 +647,10 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
                 "block tail bwd differs between two runs")
         print(f"block tail bwd {(m, c)}: max rel err of (dx, dres, ds, dt, dw1, "
               f"db1, dw2, db2, dg) = {[f'{r:.2e}' for r in rels]}", flush=True)
+        ms, _ = kernel_and_library_ms(f"block tail bwd {(m, c)}",
+                                      lambda: block_mlp_bwd(*bwd_args))
         table.add("block_mlp_bwd", (m, c), per,
-                  (ours[0].float() - ref[0].float()).abs().max().item(),
-                  time_ms(lambda: block_mlp_bwd(*bwd_args), 5),
+                  (ours[0].float() - ref[0].float()).abs().max().item(), ms,
                   time_ms(lambda: block_mlp_bwd_reference(*bwd_args), 2),
                   None, 16 * m * c + 16 * c * c, 32 * m * c * c,
                   BF16_TENSOR_FLOPS)
@@ -595,11 +661,12 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
         dx, ref = gelu_bwd(x, dy), gelu_grad_reference(x, dy)
         ulps = bf16_ulp_distance(dx, ref)
         require(ulps <= ULP_TOL, f"gelu bwd {tuple(x.shape)}: {ulps} ulps")
+        ms, lib_ms = kernel_and_library_ms(f"gelu bwd {tuple(x.shape)}",
+                                           lambda: gelu_bwd(x, dy),
+                                           lambda: torch.ops.aten.gelu_backward(dy, x))
         table.add("gelu_bwd", tuple(x.shape), per,
-                  (dx.float() - ref.float()).abs().max().item(),
-                  time_ms(lambda: gelu_bwd(x, dy), 20),
-                  time_ms(lambda: gelu_grad_reference(x, dy), 5),
-                  time_ms(lambda: torch.ops.aten.gelu_backward(dy, x), 20),
+                  (dx.float() - ref.float()).abs().max().item(), ms,
+                  time_ms(lambda: gelu_grad_reference(x, dy), 5), lib_ms,
                   6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
         del x, dy, dx, ref
     torch.cuda.empty_cache()
@@ -640,16 +707,13 @@ def check_warp(table: KernelTable, gen) -> None:
     print(f"warp f32 3x13x17x3 -> 11x19: max |kernel - plain| {err:.3g}, "
           f"max |grid_sample - plain| {lib_err:.3g}", flush=True)
     require(err <= 1e-4, f"warp f32 err {err}")
-    library = grid_sample_reflect(img, coords, torch.bfloat16)
-    print(f"warp device time a call (profiler, 20 calls): kernel "
-          f"{device_ms(lambda: warp(img, coords), 20):.4f} ms, F.grid_sample "
-          f"{device_ms(library, 20):.4f} ms", flush=True)
+    ms, lib_ms = kernel_and_library_ms(
+        f"warp {tuple(img.shape)} -> {tuple(coords.shape[:3])}",
+        lambda: warp(img, coords), grid_sample_reflect(img, coords, torch.bfloat16))
     c = img.shape[-1]
     table.add("warp", (tuple(img.shape), tuple(coords.shape)), 1,
-              (y.float() - ref.float()).abs().max().item(),
-              time_ms(lambda: warp(img, coords), 50),
-              time_ms(lambda: warp_reference(img, coords), 5),
-              time_ms(library, 50),
+              (y.float() - ref.float()).abs().max().item(), ms,
+              time_ms(lambda: warp_reference(img, coords), 5), lib_ms,
               img.numel() * 2 + coords.numel() * 4 + y.numel() * 2,
               coords.numel() // 2 * (WARP_FLOPS_PER_PIXEL + WARP_FLOPS_PER_CHANNEL * c),
               FP32_FLOPS)
@@ -724,10 +788,10 @@ def aug_rate(cfg) -> float:
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"aug: {rate:.2f} images/s (train_augment, batch {N_AUG}, "
           f"{AUG_RATE_ITERS} batches, {N_AUG * 1e3 / rate:.3f} ms a batch); "
-          f"profiled batch: device kernel time {device_ms:.3f} ms in "
+          f"profiled batch: device kernel time {dev_ms:.3f} ms in "
           f"{sum(e.count for e in rows)} device activities", flush=True)
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
@@ -846,14 +910,14 @@ def profile_train_step(step, state, batches, step_wall_ms: float,
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
-    device_ms = sum(r[0] for r in rows)
-    idle = max(0.0, 1 - device_ms / step_wall_ms)
+    dev_ms = sum(r[0] for r in rows)
+    idle = max(0.0, 1 - dev_ms / step_wall_ms)
     print(f"profile of one train step of 32 images: device kernel time "
-          f"{device_ms:.3f} ms, wall {step_wall_ms:.3f} ms a step in the timed "
+          f"{dev_ms:.3f} ms, wall {step_wall_ms:.3f} ms a step in the timed "
           f"run, device idle {idle:.1%}", flush=True)
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x {key[:100]}", flush=True)
-    return device_ms
+    return dev_ms
 
 
 def run_train() -> dict:
@@ -912,27 +976,38 @@ def run_train() -> dict:
     for name, n in want.items():
         require(launches[name] == n, f"{name}: {launches[name]} launches "
                 f"in {TRAIN_STEPS} steps, expected {n}")
-    device_ms = profile_train_step(step, state, batches[-2:],
-                                   wall * 1e3 / TRAIN_STEPS)
+    dev_ms = profile_train_step(step, state, batches[-2:],
+                                wall * 1e3 / TRAIN_STEPS)
     aug_off_ips = train_rate_without_aug(bundle, cfg, tx, state,
                                          batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS])
 
-    # an eval step on the EMA weights, 64 images with 4 padding rows
+    # an eval step on the EMA weights: 60 images through the loader in one
+    # batch of 64 (4 padding rows), under the profiler, which must see no
+    # pageable host-to-device copy (each would wait for the card)
+    from torch.profiler import ProfilerActivity, profile
+
     eval_step = make_eval_step(bundle, cfg)
-    imgs = synthetic_images(64, seed=31)
-    ev_labels = np.random.default_rng(32).integers(0, cfg.num_classes, 64)
-    mask = np.arange(64) < 60
-    batch = {"image": torch.from_numpy(imgs).cuda(),
-             "label": torch.from_numpy(ev_labels).cuda(), "mask": mask}
-    metrics = evaluate(eval_step, state, [batch])
+    n_eval = 60
+    ev_loader = DataLoader(
+        ArraySource(synthetic_images(n_eval, seed=31)),
+        Manifest(np.array([str(i) for i in range(n_eval)], object),
+                 np.random.default_rng(32).integers(0, cfg.num_classes, n_eval)),
+        batch_size=64, sampler=SequentialSampler(n_eval), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics = evaluate(eval_step, state, ev_loader)
+    pageable = sum(e.count for e in prof.key_averages()
+                   if "HtoD (Pageable -> Device)" in e.key)
     print(f"eval on the EMA weights: loss {metrics['loss']:.5f} accuracy "
-          f"{metrics['accuracy']:.4f} macro F1 {metrics['macro_f1']:.4f}",
+          f"{metrics['accuracy']:.4f} macro F1 {metrics['macro_f1']:.4f}; "
+          f"Memcpy HtoD (Pageable -> Device) in the profiled eval: {pageable}",
           flush=True)
     require(np.isfinite(metrics["loss"]), "non-finite eval loss")
-    require(int(metrics["confusion"].sum()) == 60, "eval counted padding rows")
+    require(int(metrics["confusion"].sum()) == n_eval, "eval counted padding rows")
+    require(pageable == 0, f"{pageable} pageable host-to-device copies in the eval")
     return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall,
             "aug_off_images_per_s": aug_off_ips, "peak_mem_gib": peak_gib,
-            "device_ms": device_ms, **check}
+            "device_ms": dev_ms, **check}
 
 
 def time_entry_step(cfg) -> dict:
@@ -971,10 +1046,10 @@ def time_entry_step(cfg) -> dict:
     print(f"{ENTRY_MODEL} train step alone: {TRAIN_STEPS * cfg.batch_size / wall:.2f} "
           f"images/s ({TRAIN_STEPS} steps of {cfg.batch_size} in {wall:.3f} s), peak "
           f"memory {peak_gib:.3f} GiB, launches {launches}", flush=True)
-    device_ms = profile_train_step(step, state, batches[-2:], wall * 1e3 / TRAIN_STEPS,
-                                   top=20)
+    dev_ms = profile_train_step(step, state, batches[-2:], wall * 1e3 / TRAIN_STEPS,
+                                top=20)
     return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall,
-            "device_ms": device_ms, "peak_mem_gib": peak_gib}
+            "device_ms": dev_ms, "peak_mem_gib": peak_gib}
 
 
 def train_rate_without_aug(bundle, cfg, tx, state, batches) -> float:

@@ -1,50 +1,39 @@
-// 7x7 depthwise convolution, SAME padding, no bias, channels-last (NHWC):
-// the forward stencil, the fused backward (dx and dw in one pass) and the
-// wgrad-only backward (dw alone).
+// 7x7 depthwise convolution, SAME padding, no bias, channels-last (NHWC): the
+// fused backward, dx and dw in one pass. The forward stencil and the
+// wgrad-only backward are in dwconv7x7_fwd_wgrad.cu.
 //
-// Replaces: image_classification_tpu/ops/dwconv.py:_conv_same_pallas (body
-// _fwd_kernel), _bwd_pallas (body _bwd_kernel) and _wgrad_pallas (body
-// _dw_kernel). _bwd_pallas splits the backward into the forward stencil on g
-// with the flipped filter (dx) and _wgrad_pallas (dw) where its VMEM estimate
-// of one image passes 16 MiB (stage 0 of ConvNeXt-L at 260 px); the port's
-// ops/dwconv.py routes the same way, so both packages run the same kernels
-// at each shape.
+// Replaces: image_classification_tpu/ops/dwconv.py:_bwd_pallas (body
+// _bwd_kernel), which the JAX package runs where its VMEM estimate of one
+// image stays within 16 MiB; past it (stage 0 of ConvNeXt-L at 260 px) both
+// packages split the backward into the forward stencil on g with the
+// flipped filter (dx) and the wgrad-only kernel (dw).
 //
-// What bounds it on the H100: device memory. Each output element costs 49
-// FMAs and, ideally, one read of x and one write of y, so at bf16 the
-// forward does about 25 FLOP per byte moved, far below the ~295 the card
-// needs before arithmetic becomes the limit. The backward reads x and g and
-// writes dx (3 * B*H*W*C elements) for 4 * 49 FLOP an element: the same
-// regime. The danger is reading the inputs 49 times.
+// What bounds it on the H100: the backward reads x and g and writes dx
+// (3 * B*H*W*C elements) for 4 * 49 FLOP an element: about 33 FLOP a byte
+// in bf16, near the card's balance for FP32 work. The danger is reading the
+// inputs 49 times.
 //
 // What the design does about it: one block owns an 8x8 tile of output pixels
-// for 32 channels of one image. It stages the 14x14 input tile (the halo of 3
-// on each side, zero outside the image) and the 49 taps for its 32 channels
-// in shared memory as f32, so every element leaves device memory about
-// (14*14)/(8*8) = 3 times at worst, from L2 for the overlap. Threads run along
-// the channels, so global loads and stores of a pixel's channels coalesce and
-// shared-memory reads hit 32 distinct banks; where C allows, the tile is
-// filled with 16-byte loads (8 bf16 or 4 f32 channels a thread). Each thread
-// accumulates the 49 taps in f32 for 8 output pixels of one row, reusing each
-// loaded input row across the 7 horizontal taps.
-//
-// The backward stages the 14x14 halo of g and the 8x8 centre of x. dx is the
-// forward stencil over g with the flipped filter. For dw each thread keeps
-// the 49 per-tap sums of its (channel, row) in registers:
+// for 32 channels of one image. It stages the 14x14 tile of g (the halo of 3
+// on each side, zero outside the image), the 8x8 tile of x and the 49
+// flipped taps for its 32 channels in shared memory as f32, so every element
+// leaves device memory about (14*14)/(8*8) = 3 times at worst, from L2 for
+// the overlap. Threads run along the channels, so global loads and stores of
+// a pixel's channels coalesce and shared-memory reads hit 32 distinct banks;
+// where C allows, the tile is filled with 16-byte loads (8 bf16 or 4 f32
+// channels a thread). dx is the forward stencil over g with the flipped
+// filter: each thread accumulates the 49 taps in f32 for 8 output pixels of
+// one row, reusing each loaded row across the 7 horizontal taps. For dw each
+// thread keeps the 49 per-tap sums of its (channel, row) in registers:
 // dw[i][j] += x[h][w] * g[h - i + 3][w - j + 3] over its 8 pixels, each
 // product rounded to the storage type first, as the Pallas kernel multiplies
 // its bf16 tiles. The TPU kernel carries dw across its sequential grid;
 // Hopper's blocks run in no order, so each block walks a fixed set of tiles,
 // sums its 8 rows in a fixed order in shared memory, and writes one f32
 // partial (49, 32); a second kernel adds the partials of each (tap, channel)
-// in block order. No float atomics: two runs give the same bits.
-//
-// The wgrad-only kernel is the same kernel without dx (no taps, no stencil,
-// no store): it reads x and g once each and does 2 * 49 FLOP an element, so
-// at bf16 it is bound by the f32 units (1.27 GFLOP at 16x65x65x192: 19 us)
-// about as much as by memory (52 MB: 15.5 us). Its tiles, partials and
-// reduction order are the fused kernel's, so its dw equals the fused dw bit
-// for bit.
+// in block order. No float atomics: two runs give the same bits. The
+// kernel's template keeps a WITH_DX=false form (dw alone), which nothing
+// launches: the wgrad-only kernel has its own design.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -148,30 +137,6 @@ __device__ __forceinline__ void store_row(T* __restrict__ yb, const float (&acc)
   }
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-dwconv7x7_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     T* __restrict__ y, int H, int W, int C, int tiles_w) {
-  __shared__ float xs[IH * IW][CB + 1];
-  __shared__ float ws[KS * KS][CB];
-
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.y * CB;
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const size_t img = (size_t)b * H * W * C;
-
-  fill_taps<T, false>(ws, w, C, c0);
-  fill_tile<T, VEC>(xs, x + img, IH, IW, h0 - PAD, w0 - PAD, H, W, C, c0);
-  __syncthreads();
-
-  const int c = threadIdx.x % CB;
-  const int r = threadIdx.x / CB;
-  float acc[TW];
-  stencil_row(xs, ws, r, c, acc);
-  if (h0 + r < H && c0 + c < C) store_row(y + img, acc, h0 + r, w0, W, C, c0 + c);
-}
-
 // WITH_DX: the fused backward; without it, the wgrad-only kernel (w and dx
 // unused).
 template <typename T, bool VEC, bool WITH_DX>
@@ -271,25 +236,6 @@ bool vec_ok(int C, const void* a, const void* b) {
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, void* y, int B, int H, int W,
-                   int C, cudaStream_t stream) {
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const dim3 grid(tiles_w * tiles_h, (C + CB - 1) / CB, B);
-  if (vec_ok<T>(C, x, x)) {
-    dwconv7x7_fwd_kernel<T, true><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-        H, W, C, tiles_w);
-  } else {
-    dwconv7x7_fwd_kernel<T, false><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-        H, W, C, tiles_w);
-  }
-  return cudaGetLastError();
-}
-
-// dx == nullptr launches the wgrad-only kernel (w is then unread too).
-template <typename T>
 cudaError_t launch_bwd(const void* x, const void* g, const void* w, void* dx,
                        float* partial, float* dw, int groups, int B, int H,
                        int W, int C, cudaStream_t stream) {
@@ -300,18 +246,11 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* w, void* dx,
   const T* gt = static_cast<const T*>(g);
   const T* wt = static_cast<const T*>(w);
   T* dxt = static_cast<T*>(dx);
-  const bool vec = vec_ok<T>(C, x, g);
-  if (dx != nullptr && vec) {
+  if (vec_ok<T>(C, x, g)) {
     dwconv7x7_bwd_kernel<T, true, true><<<grid, THREADS, 0, stream>>>(
         xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
-  } else if (dx != nullptr) {
-    dwconv7x7_bwd_kernel<T, false, true><<<grid, THREADS, 0, stream>>>(
-        xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
-  } else if (vec) {
-    dwconv7x7_bwd_kernel<T, true, false><<<grid, THREADS, 0, stream>>>(
-        xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
   } else {
-    dwconv7x7_bwd_kernel<T, false, false><<<grid, THREADS, 0, stream>>>(
+    dwconv7x7_bwd_kernel<T, false, true><<<grid, THREADS, 0, stream>>>(
         xt, gt, wt, dxt, partial, B, H, W, C, tiles_w, tiles);
   }
   cudaError_t err = cudaGetLastError();
@@ -322,20 +261,6 @@ cudaError_t launch_bwd(const void* x, const void* g, const void* w, void* dx,
 }
 
 }  // namespace
-
-// x (B, H, W, C) and w (7, 7, C) contiguous, of one dtype; y like x.
-extern "C" int ic_dwconv7x7_fwd(const void* x, const void* w, void* y, int B,
-                                int H, int W, int C, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case IC_F32:
-      return launch<float>(x, w, y, B, H, W, C, st);
-    case IC_BF16:
-      return launch<__nv_bfloat16>(x, w, y, B, H, W, C, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // Number of tile groups (blocks along the grid's x) of the backward, which
 // sizes its f32 scratch `partial`: (groups, 49, C).
@@ -359,28 +284,6 @@ extern "C" int ic_dwconv7x7_bwd(const void* x, const void* g, const void* w,
     case IC_BF16:
       return launch_bwd<__nv_bfloat16>(x, g, w, dx, p, d, groups, B, H, W, C,
                                        st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// The wgrad-only backward: dw (7, 7, C) f32 of the conv at x for the output
-// gradient g; x and g (B, H, W, C) contiguous, of one dtype; partial as for
-// ic_dwconv7x7_bwd.
-extern "C" int ic_dwconv7x7_wgrad(const void* x, const void* g, void* partial,
-                                  void* dw, int groups, int B, int H, int W,
-                                  int C, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (groups != bwd_groups(B, H, W, C)) return cudaErrorInvalidValue;
-  float* p = static_cast<float*>(partial);
-  float* d = static_cast<float*>(dw);
-  switch (dtype) {
-    case IC_F32:
-      return launch_bwd<float>(x, g, nullptr, nullptr, p, d, groups, B, H, W, C,
-                               st);
-    case IC_BF16:
-      return launch_bwd<__nv_bfloat16>(x, g, nullptr, nullptr, p, d, groups, B,
-                                       H, W, C, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,11 +6,11 @@ the manifest; all of them by default) in the order the sampler gives for the
 current epoch (:meth:`DataLoader.set_epoch`). With ``drop_last`` a short last
 batch is dropped (the train loader); otherwise, with ``pad_last``, it is
 padded with zero images (label 0, index -1) to the full batch size and
-``mask`` marks the real rows. For a CUDA ``device`` (the default) the images
-and labels go through pinned host memory and a ``non_blocking`` copy on the
-current stream. Batches are assembled on the calling thread; the JAX
-package's background prefetch and its HBM image cache (a workaround for a
-remote TPU's slow host link) are not ported.
+``mask`` marks the real rows. For a CUDA ``device`` (the default) the images,
+labels and mask go through pinned host memory and a ``non_blocking`` copy on
+the current stream, so no batch waits for the card. Batches are assembled on
+the calling thread; the JAX package's background prefetch and its HBM image
+cache (a workaround for a remote TPU's slow host link) are not ported.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from image_classification_tpu_torch.data.sampling import SequentialSampler
 
 
 class DataLoader:
-    """Yields dicts: image (B, H, W, 3) uint8 and label (B,) int64 on
-    ``device``; mask (B,) bool and index (B,) int64 (the manifest row, -1 on
+    """Yields dicts: image (B, H, W, 3) uint8, label (B,) int64 and mask
+    (B,) bool on ``device``; index (B,) int64 (the manifest row, -1 on
     padding) on the host."""
 
     def __init__(self, source: Any, manifest: Manifest,
@@ -71,7 +71,7 @@ class DataLoader:
                 mask = np.concatenate([mask, np.zeros(pad, bool)])
                 idx = np.concatenate([idx, np.full(pad, -1)])
             yield {"image": self._to_device(images),
-                   "label": self._to_device(labels), "mask": mask,
+                   "label": self._to_device(labels), "mask": self._to_device(mask),
                    "index": idx.astype(np.int64)}
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:

@@ -79,7 +79,7 @@ def predict_ensemble(
                 p = fwd(xb) * wi
                 total = p if total is None else total + p
             probs = total.cpu().numpy()  # one device->host pull per batch
-            all_probs.append(probs[np.asarray(batch["mask"])])
+            all_probs.append(probs[batch["mask"].cpu().numpy()])
             ids.extend(str(i) for i in batch_ids)
     probs = np.concatenate(all_probs) if all_probs else np.zeros((0, cfg.num_classes))
     return ids, probs.argmax(axis=1), probs

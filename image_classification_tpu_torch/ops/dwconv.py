@@ -30,8 +30,9 @@ packages run the same kernels at each shape.
 On a CPU tensor the wrappers run the plain versions
 (:func:`depthwise_conv7x7_reference`, :func:`depthwise_conv7x7_wgrad_reference`,
 :func:`depthwise_conv7x7_bwd_reference`); on a CUDA tensor they launch the
-hand-written kernels of ``csrc/dwconv7x7.cu`` (see the note at its top), or
-raise.
+hand-written kernels, or raise: the forward stencil and the wgrad-only
+kernel of ``csrc/dwconv7x7_fwd_wgrad.cu`` and the fused backward of
+``csrc/dwconv7x7.cu`` (see the notes at their tops).
 """
 
 from __future__ import annotations
@@ -96,8 +97,7 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor | None = None):
                          f"w {tuple(w.shape)} needs (7,7,C)")
     if x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
-    B, H, W, C = x.shape
-    if B > 65535 or -(-C // 32) > 65535:
+    if -(-x.shape[-1] // 32) > 65535:
         raise ValueError(f"{name}: grid too large for {tuple(x.shape)}")
     return _build
 
@@ -135,19 +135,19 @@ def depthwise_conv7x7_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _build = _check("depthwise_conv7x7_wgrad", x)
     _check_g("depthwise_conv7x7_wgrad", x, g)
     _build.require_cuda("depthwise_conv7x7_wgrad", x, g)
-    dw = torch.zeros((K, K, C), dtype=torch.float32, device=x.device)
-    if x.numel():
-        lib = _build.library()
-        groups = lib.ic_dwconv7x7_bwd_groups(B, H, W, C)
-        partial = torch.empty((groups, K * K, C), dtype=torch.float32,
-                              device=x.device)
-        with torch.cuda.device(x.device):
-            code = lib.ic_dwconv7x7_wgrad(
-                x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                groups, B, H, W, C, _build.DTYPE_CODES[x.dtype],
-                _build.stream_ptr(x))
-        _build.check(code, "depthwise_conv7x7_wgrad")
-        depthwise_conv7x7_wgrad.launches += 1
+    if not x.numel():
+        return torch.zeros((K, K, C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((K, K, C), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    segs = lib.ic_dwconv7x7_wgrad_segs(B, H, W, C)
+    partial = torch.empty((lib.ic_dwconv7x7_wgrad_partials(B, H, W, segs),
+                           K * K, C), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = lib.ic_dwconv7x7_wgrad(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            segs, B, H, W, C, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+    _build.check(code, "depthwise_conv7x7_wgrad")
+    depthwise_conv7x7_wgrad.launches += 1
     return dw
 
 

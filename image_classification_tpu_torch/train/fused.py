@@ -31,17 +31,21 @@ _INT32_MAX = 2**31 - 1
 
 @torch.no_grad()
 def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
-                    tx, cfg) -> None:
+                    tx, cfg) -> torch.Tensor | None:
     """Apply one update to ``state`` in place (parameters, ``mu``, ``nu``,
     EMA, ``count``). ``grads`` align with ``state.params()``; ``tx`` is
-    ``train/optim.py:build_optimizer``'s result."""
+    ``train/optim.py:build_optimizer``'s result. Returns the global gradient
+    norm (a device scalar) where the clip or ``cfg.debug_nans`` needs it,
+    else None."""
     params = state.params()
     b1, b2, eps, wd = tx.b1, tx.b2, tx.eps, tx.weight_decay
     count_inc = min(state.count + 1, _INT32_MAX)   # optax.safe_increment
     lr = tx.schedule(state.count)
 
-    if tx.gradient_clip_val > 0:
+    gnorm = None
+    if tx.gradient_clip_val > 0 or cfg.debug_nans:
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if tx.gradient_clip_val > 0:
         # the clip value stays a Python scalar (cast to f32 by each op): a
         # tensor made from it would be a host copy that waits for the card
         clip = tx.gradient_clip_val
@@ -67,3 +71,4 @@ def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
     if state.ema is not None:
         ema_update(state.ema, params, cfg.ema_decay)
     state.count = count_inc
+    return gnorm

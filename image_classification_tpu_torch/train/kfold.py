@@ -10,7 +10,9 @@ load_decode_cache``), read once over the whole manifest; folds index into it.
 
 Not ported, each raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
 queue A, item 14), ``split_mode=holdout`` (sklearn's ``train_test_split``),
-``norm_stats=dataset`` and ``train_ensemble`` (ViT, queue A, item 12).
+``norm_stats=dataset``, ``train_ensemble`` (ViT, queue A, item 12) and
+``use_decode_cache=false`` (decoding without the cache, queue A, item 4).
+``prefetch_depth > 0`` logs a warning: the loader runs in the step's thread.
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ logger = logging.getLogger("ic_tpu_torch")
 
 def build_source(cfg, manifest: Manifest, img_dir: str):
     """The decoded uint8 images of ``manifest`` under ``img_dir``."""
+    if not cfg.use_decode_cache:
+        raise NotImplementedError("use_decode_cache=false: the port decodes no "
+                                  "JPEGs yet and reads only the decode cache "
+                                  "(ROADMAP queue A, item 4)")
     return load_decode_cache(img_dir, manifest.ids, tuple(cfg.native_size),
                              cfg.cache_dir)
 
@@ -85,6 +91,10 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
     if cfg.norm_stats == "dataset":
         raise NotImplementedError("norm_stats=dataset is not ported yet "
                                   "(ROADMAP queue A, left out of the port)")
+    if cfg.prefetch_depth > 0:
+        logger.warning("prefetch_depth=%d: the port's loader has no background "
+                       "prefetch; it assembles each batch in the step's thread "
+                       "(ROADMAP queue A, item 4)", cfg.prefetch_depth)
     if manifest is None:
         manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
     logger.info("class distribution: %s",

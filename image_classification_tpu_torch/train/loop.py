@@ -12,6 +12,11 @@ the card seeded from ``(cfg.seed, fold, "steps", step)`` (the JAX step folds
 the step into its key the same way), so a resumed fold draws what the
 straight run drew. The epoch orders are the JAX package's (numpy samplers).
 
+``debug_nans`` (JAX's ``jax_debug_nans``) checks after each train step that
+the loss and the global gradient norm are finite, and raises
+``FloatingPointError`` naming the fold and step; the check reads the card,
+so it runs only when the key is set.
+
 Not ported: the compiled-step sharing across folds (``program_sig`` /
 ``shared``), which exists to reuse XLA compiles, and SWA, whose batch-norm
 step serves EfficientNet (not ported).
@@ -70,6 +75,16 @@ def _append_metrics(output_dir: str, fold: int, record: dict) -> None:
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "metrics.jsonl"), "a") as f:
         f.write(json.dumps({"fold": fold, **record}) + "\n")
+
+
+def check_finite(metrics: dict, fold: int, epoch: int, step: int) -> None:
+    """Raise ``FloatingPointError`` if the step's loss or gradient norm (where
+    the step computed one) is not finite."""
+    bad = {k: float(metrics[k]) for k in ("loss", "grad_norm")
+           if k in metrics and not np.isfinite(float(metrics[k]))}
+    if bad:
+        raise FloatingPointError(f"debug_nans: fold {fold} epoch {epoch + 1} "
+                                 f"step {step}: non-finite {bad}")
 
 
 def build_lr_schedule(cfg, steps_per_epoch: int):
@@ -222,6 +237,8 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
                                                        state.step))
                 with timer.compute(n_images=batch["image"].shape[0]):
                     state, metrics = train_step(state, batch, generator=generator)
+                if cfg.debug_nans:
+                    check_finite(metrics, fold, epoch, state.step)
                 losses.append(metrics["loss"])
                 accs.append(metrics["accuracy"])
                 step_i += 1

@@ -104,7 +104,9 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     (state, metrics)``: the input stage of :func:`make_batch_augment`, one
     optimizer step over ``cfg.gradient_accumulation_steps`` microbatches,
-    then the fused clip + AdamW + EMA update in place. ``batch`` holds
+    then the fused clip + AdamW + EMA update in place; ``metrics`` holds
+    the global gradient norm as ``grad_norm`` where the clip or
+    ``debug_nans`` computes it. ``batch`` holds
     'image' and 'label' int (B,) on the model's device: uint8 (B, h, w, 3)
     with ``aug_enabled=true``, float (B, H, W, 3) already preprocessed with
     ``aug_enabled=false``; ``tx`` is ``train/optim.py:build_optimizer``'s
@@ -117,7 +119,9 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
         images, targets = augment(batch, generator, draws)
         grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
                                           images, targets, batch["label"])
-        fused_adamw_ema(grads, state, tx=tx, cfg=cfg)
+        gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg)
+        if gnorm is not None:
+            metrics["grad_norm"] = gnorm
         state.step += 1
         return state, metrics
 
@@ -162,7 +166,8 @@ def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
     padding rows of a last batch count for nothing. The deep-supervised
     model is scored on its main head with label-smoothed CE, on the EMA
     weights when ``use_ema`` and ``cfg.use_ema``. ``batch``: 'image' uint8
-    (B, h, w, 3) and 'label' (B,) on the device, 'mask' (B,) bool."""
+    (B, h, w, 3), 'label' (B,) and 'mask' (B,) bool on the device (a host
+    mask is copied, and the copy waits for the card)."""
     dtype = compute_dtype(cfg)
     k = cfg.num_classes
 

@@ -131,8 +131,14 @@ def test_dwconv_bwd_matches_jax_pallas_vjp(shape, dtype):
     _close(dw, rdw, rel, "dw")
 
 
+# (2, 9, 11, 40), then the chip check's edge shapes: V2's stage 0 at 60x80
+# input, maps smaller than the kernel, an odd small map, and a map wider than
+# the wgrad kernel's 65-column strip
+@pytest.mark.parametrize("shape", [(2, 9, 11, 40), (2, 15, 20, 128), (2, 3, 5, 40),
+                                   (2, 1, 1, 40), (3, 13, 17, 40), (1, 9, 70, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dwconv_wgrad_matches_jax_wgrad_pallas(dtype):
+def test_dwconv_wgrad_matches_jax_wgrad_pallas(dtype, shape):
     """The wgrad-only plain version against ``_wgrad_pallas`` (interpret
     mode), summed in f32 in another order. In bf16 the port rounds each
     product to bf16, as the kernel multiplies its bf16 tiles, while XLA on
@@ -140,7 +146,6 @@ def test_dwconv_wgrad_matches_jax_wgrad_pallas(dtype):
     by ~2^-9 of a product per term, at random signs, which BF16_REL bounds;
     the same sums over unrounded products agree to f32 noise."""
     rng = np.random.default_rng(23)
-    shape = (2, 9, 11, 40)
     jdt = jnp.dtype(dtype)
     x = jnp.asarray(rng.normal(size=shape).astype(np.float32)).astype(jdt)
     g = jnp.asarray(rng.normal(size=shape).astype(np.float32)).astype(jdt)
@@ -149,7 +154,7 @@ def test_dwconv_wgrad_matches_jax_wgrad_pallas(dtype):
     xt, gt = _t(_np(x), tdt), _t(_np(g), tdt)
     for fn in (depthwise_conv7x7_wgrad, depthwise_conv7x7_wgrad_reference):
         dw = fn(xt, gt)
-        assert dw.shape == (7, 7, 40) and dw.dtype == torch.float32
+        assert dw.shape == (7, 7, shape[-1]) and dw.dtype == torch.float32
         _close(dw, ref, 1e-5 if dtype == "float32" else BF16_REL, fn.__name__)
     _close(depthwise_conv7x7_wgrad_reference(xt.float(), gt.float()), ref, 1e-5,
            "f32 products")

@@ -1,13 +1,16 @@
 """Guards on the port's boundaries: its Config copy stays the JAX package's,
-it imports no JAX, and its kernel wrappers take the plain path on the CPU."""
+it imports no JAX, its kernel wrappers take the plain path on the CPU, and
+the config keys it does not follow raise or warn."""
 
 import dataclasses
 import glob
+import logging
 import os
 import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +18,9 @@ from image_classification_tpu.core.config import Config as JaxConfig
 from image_classification_tpu.core.config import load_config as jax_load_config
 import image_classification_tpu_torch
 from image_classification_tpu_torch.core.config import Config, load_config
+from image_classification_tpu_torch.data import DataLoader, Manifest, SequentialSampler
+from image_classification_tpu_torch.train import kfold
+from image_classification_tpu_torch.train.loop import train_fold
 from image_classification_tpu_torch.ops import (
     KERNEL_WRAPPERS,
     block_mlp,
@@ -95,3 +101,70 @@ def test_wrappers_take_the_plain_path_on_cpu(dtype):
     out = warp(x[..., :3].contiguous(), torch.rand(2, 5, 6, 2) * 9)
     assert out.shape == (2, 5, 6, 3) and out.dtype == dtype
     assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * len(KERNEL_WRAPPERS)
+
+
+def _tiny_cfg(tmp_path, **over) -> Config:
+    kw = dict(model_name="convnext_atto", num_classes=3, image_size=(32, 32),
+              native_size=(32, 32), use_deep_supervision=False,
+              aug_enabled=False, mixup_alpha=0.0, cutmix_alpha=0.0,
+              compute_dtype="float32", batch_size=4,
+              gradient_accumulation_steps=1, epochs=1, use_ema=False,
+              model_save_path=str(tmp_path / "models"),
+              output_dir=str(tmp_path / "out"))
+    kw.update(over)
+    return Config(**kw).validate()
+
+
+class _FloatSource:
+    """Pre-augmented f32 images (the train step's input with
+    ``aug_enabled=false``); the first image holds a NaN."""
+
+    def __init__(self, n: int):
+        self.images = np.random.default_rng(0).normal(size=(n, 32, 32, 3)).astype(np.float32)
+        self.images[0, 0, 0, 0] = np.nan
+
+    def get_batch(self, idx):
+        return self.images[idx]
+
+
+@pytest.mark.parametrize("debug_nans", [True, False])
+def test_debug_nans_raises_on_a_nan_loss(tmp_path, debug_nans):
+    """``debug_nans=true`` stops the fold at the first step whose loss is
+    NaN and names the fold and step; without it the step runs on."""
+    cfg = _tiny_cfg(tmp_path, debug_nans=debug_nans)
+    manifest = Manifest(np.array([str(i) for i in range(4)], object), np.arange(4) % 3)
+    loader = DataLoader(_FloatSource(4), manifest, batch_size=4,
+                        sampler=SequentialSampler(4), device="cpu")
+    if debug_nans:
+        with pytest.raises(FloatingPointError, match="fold 2 epoch 1 step 1"):
+            train_fold(cfg, loader, loader, fold=2)
+    else:
+        result = train_fold(cfg, loader, loader, fold=2)
+        assert np.isnan(result.history[0]["train_loss"])
+
+
+def test_use_decode_cache_false_raises(tmp_path):
+    cfg = _tiny_cfg(tmp_path, use_decode_cache=False)
+    manifest = Manifest(np.array(["0", "1"], object), np.array([0, 1]))
+    with pytest.raises(NotImplementedError, match="use_decode_cache=false"):
+        kfold.build_source(cfg, manifest, str(tmp_path))
+
+
+def test_prefetch_depth_logs_one_warning(tmp_path):
+    """The default ``prefetch_depth=2`` warns once per ``train_k_fold``
+    (here stopped right after, at the decode cache)."""
+    cfg = _tiny_cfg(tmp_path, use_decode_cache=False)
+    assert cfg.prefetch_depth == 2
+    manifest = Manifest(np.array(["0", "1", "2"], object), np.array([0, 1, 2]))
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("ic_tpu_torch")   # propagates nowhere once set up
+    logger.addHandler(handler)
+    try:
+        with pytest.raises(NotImplementedError):
+            kfold.train_k_fold(cfg, manifest=manifest, device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    warned = [r for r in records if "prefetch_depth" in r.getMessage()]
+    assert len(warned) == 1 and warned[0].levelno == logging.WARNING

@@ -20,6 +20,7 @@ from image_classification_tpu_torch.data import (
     ArraySource,
     DataLoader,
     Manifest,
+    SequentialSampler,
     ShuffleSampler,
     WeightedSampler,
 )
@@ -133,7 +134,22 @@ def test_loader_matches_jax(drop_last):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x["image"].numpy(), y["image"])
             np.testing.assert_array_equal(x["label"].numpy(), y["label"])
-            np.testing.assert_array_equal(x["mask"], y["mask"])
+            np.testing.assert_array_equal(x["mask"].numpy(), y["mask"])
             np.testing.assert_array_equal(x["index"], y["index"])
         assert [list(i) for i in ours.batch_ids()] == [list(i) for i in theirs.batch_ids()]
     assert a[0]["image"].dtype == torch.uint8
+
+
+def test_loader_batch_carries_mask_as_a_tensor():
+    """``mask`` goes to the loader's device with the image and the label
+    (on a card, through the same pinned non-blocking copy), so the eval
+    step makes no host copy of it."""
+    n = 7
+    images = np.zeros((n, 4, 4, 3), np.uint8)
+    loader = DataLoader(ArraySource(images), Manifest(np.array([str(i) for i in range(n)],
+                                                               object), np.zeros(n, int)),
+                        batch_size=4, sampler=SequentialSampler(n), device="cpu")
+    masks = [b["mask"] for b in loader]
+    assert all(isinstance(m, torch.Tensor) and m.dtype == torch.bool
+               and m.device == loader.device for m in masks)
+    assert [m.tolist() for m in masks] == [[True] * 4, [True] * 3 + [False]]

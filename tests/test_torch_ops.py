@@ -37,7 +37,12 @@ def test_gelu_matches_jax_and_pallas_kernel(monkeypatch):
     np.testing.assert_allclose(ours, exact, rtol=0, atol=2e-6 * np.abs(x).max())
 
 
-@pytest.mark.parametrize("shape", [(2, 9, 9, 12), (3, 17, 11, 20), (1, 4, 6, 7)])
+# the last five are the chip check's edge shapes: V2's stage 0 at 60x80
+# input, maps smaller than the kernel, an odd small map, and a map wider than
+# the wgrad kernel's 65-column strip
+@pytest.mark.parametrize("shape", [(2, 9, 9, 12), (3, 17, 11, 20), (1, 4, 6, 7),
+                                   (2, 15, 20, 128), (2, 3, 5, 40), (2, 1, 1, 40),
+                                   (3, 13, 17, 40), (1, 9, 70, 40)])
 def test_dwconv_matches_jax_pallas_interpret(shape):
     rng = np.random.default_rng(sum(shape))
     x = rng.normal(size=shape).astype(np.float32)
