@@ -20,11 +20,15 @@ versions in f32:
 * train entry: ``cli train`` on ``configs/v4.json`` with
   ``model_name=convnext_large`` (full width and depth), 2 folds of 2 epochs
   over a synthetic 44-class set with a long tail, which writes the
-  checkpoints, ``metrics.jsonl`` and the submission; ConvNeXt-L's stage 0
-  takes the split depthwise backward and with it the wgrad-only kernel; then
-  ``cli predict`` on the saved checkpoints, which must reproduce the
-  submission; then the ConvNeXt-L train step alone, timed, and one step of
-  it on 4 images against the f32 host step.
+  checkpoints, ``metrics.jsonl`` and the submission; then ``cli predict`` on
+  the saved checkpoints, which must reproduce the submission; then the
+  ConvNeXt-L train step alone, timed, and one step of it on 4 images against
+  the f32 host step.
+
+Every depthwise backward runs as the forward stencil on g with the flipped
+filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 backward
+runs on its own GEMM core (wgmma fed by TMA), which is also held alone,
+product by product, against ``torch.matmul``.
 
     python3 chip_smoke.py
 
@@ -64,7 +68,6 @@ from image_classification_tpu_torch.aug.pipeline import aug_configs_from, train_
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
-from image_classification_tpu_torch.ops import dwconv as dwconv_ops
 from image_classification_tpu_torch.ops import (
     _build,
     block_mlp,
@@ -201,12 +204,8 @@ WARP_FLOPS_PER_CHANNEL = 8
 
 
 # The train entry: ConvNeXt-L (full width and depth) through ``cli train``.
-# Its stage 0 at 260 px, 65x65x192, passes the TPU backward's VMEM budget
-# (24,593,664 > 16,777,216 B), so the depthwise backward there splits into
-# the forward on g with the flipped filter and the wgrad-only kernel.
 ENTRY_MODEL = "convnext_large"
 ENTRY_DEPTHS, ENTRY_DIMS = CONVNEXT_CONFIGS[ENTRY_MODEL]
-WGRAD_SHAPE = (MICRO, STAGE_HW[0], STAGE_HW[0], ENTRY_DIMS[0])
 WGRAD_SMALL = (3, 13, 17, 40)
 # Where the forward stencil and the wgrad-only kernel can break, beyond the
 # main path: V2's stage 0 at 60x80 input (15x20), maps smaller than the
@@ -217,26 +216,37 @@ WGRAD_SMALL = (3, 13, 17, 40)
 # JAX at the first five.
 EDGE_SHAPES = ((2, 15, 20, 128), (2, 3, 5, 40), (2, 1, 1, 40), WGRAD_SMALL,
                (1, 9, 70, 40), (128, 80, 80, 41))
-# The split route against the fused kernel on the same inputs. The two share
-# no code: dx is the forward stencil over the flipped taps against the fused
-# kernel's own stencil, both f32 sums of the same 49 products rounded once,
-# so at most one bf16 ulp apart; dw sums the same bf16-rounded products in
-# another order (chunks of 13 columns, runs of rows, a fixed tree against the
-# fused kernel's rows, tiles and block order), so the two differ by f32
-# rounding alone, which the first run on an H100 measured at 4.9e-7 of the
-# largest element (the fused kernel's long chain of 171 partials the larger
-# share); the bound is 1e-6.
-SPLIT_DW_REL_TOL = 1e-6
+# Block tail backward beyond the main path: one row, a ragged tile of 127
+# rows, and C = 40 and 96, which are not multiples of the 64-column boxes.
+BLOCK_BWD_EDGES = ((1, 40), (1, 128), (127, 96), (127, 512), (300, 40), (300, 96))
+# The GEMM core alone, each of the backward's four products against
+# torch.matmul in f32 on the same bf16 operands: every product of two bf16
+# values is exact in f32, so the two differ by the f32 rounding of sums in
+# another order (~sqrt(K) 2^-24 of the terms' scale), far inside 1e-4 of the
+# largest element. At M = 4624 (ConvNeXt-B's stage 2 rows: a ragged last
+# tile) and C = 192 (N and K not multiples of the 128 x 64 tile).
+GEMM_CHECK_SHAPE = (4624, 192)
+GEMM_REL_TOL = 1e-4
 # The earlier designs' device times at the main path's shapes (ms a launch,
-# bf16; the mean of two runs of image_classification_tpu_torch/tools/
-# time_dwconv.py on a checkout of the earlier designs, NVIDIA H100 80GB HBM3
-# at 700 W), printed beside this run's.
+# bf16, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's: the
+# depthwise forward and wgrad before their redesign (the mean of two runs of
+# image_classification_tpu_torch/tools/time_dwconv.py on a checkout of those
+# designs); the fused depthwise backward, which the split route replaced (two
+# runs of the same script on the checkout that still had it); the block
+# tail's WMMA backward (two runs of tools/time_block_mlp.py on that checkout).
 EARLIER_MS = {
     ("dwconv", (256, 65, 65, 128)): 1.3439, ("dwconv", (256, 33, 33, 256)): 0.7947,
     ("dwconv", (256, 17, 17, 512)): 0.5380, ("dwconv", (256, 9, 9, 1024)): 0.4266,
     ("dwconv", (16, 65, 65, 192)): 0.1321, ("dwconv", (16, 33, 33, 384)): 0.0755,
     ("dwconv", (16, 17, 17, 768)): 0.0510, ("dwconv", (16, 9, 9, 1536)): 0.0411,
     ("dwconv_wgrad", (16, 65, 65, 192)): 0.2805,
+    ("dwconv_bwd", (16, 65, 65, 128)): 0.3301, ("dwconv_bwd", (16, 33, 33, 256)): 0.2066,
+    ("dwconv_bwd", (16, 17, 17, 512)): 0.1463, ("dwconv_bwd", (16, 9, 9, 1024)): 0.1268,
+    ("dwconv_bwd", (16, 65, 65, 192)): 0.4797, ("dwconv_bwd", (16, 33, 33, 384)): 0.3058,
+    ("dwconv_bwd", (16, 17, 17, 768)): 0.2079, ("dwconv_bwd", (16, 9, 9, 1536)): 0.1730,
+    ("block_mlp_bwd", (67600, 128)): 1.1839, ("block_mlp_bwd", (17424, 256)): 0.8398,
+    ("block_mlp_bwd", (4624, 512)): 0.8718, ("block_mlp_bwd", (67600, 192)): 1.9540,
+    ("block_mlp_bwd", (17424, 384)): 1.5631,
 }
 # A synthetic 44-class set with a long tail (class k has 1 + a share
 # proportional to 0.9^k of the rest; the last classes have 1 sample, as the
@@ -368,9 +378,10 @@ KERNEL_META = {
                   "image_classification_tpu/ops/block_mlp.py:253"),
     "gelu": ("triton", "image_classification_tpu_torch/ops/gelu.py",
              "image_classification_tpu/ops/gelu.py:74"),
-    "dwconv_bwd": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7.cu",
+    # the split route: the forward stencil on g (dx) and the wgrad kernel (dw)
+    "dwconv_bwd": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7_fwd_wgrad.cu",
                    "image_classification_tpu/ops/dwconv.py:243"),
-    "block_mlp_bwd": ("cuda", "image_classification_tpu_torch/csrc/block_mlp.cu",
+    "block_mlp_bwd": ("cuda", "image_classification_tpu_torch/csrc/block_mlp_bwd.cu",
                       "image_classification_tpu/ops/block_mlp.py:305"),
     "gelu_bwd": ("triton", "image_classification_tpu_torch/ops/gelu.py",
                  "image_classification_tpu/ops/gelu.py:109"),
@@ -498,40 +509,52 @@ def library_dwconv_wgrad(x, g, w):
         [False, True, False])
 
 
-def check_wgrad(table: KernelTable, gen) -> None:
-    """The wgrad-only kernel at ConvNeXt-L's stage-0 microbatch in bf16:
-    against its plain version, twice for the same bits, and the split
-    backward (the forward on g with the flipped filter, then the wgrad)
-    against the fused kernel on the same inputs, timed side by side."""
-    _, h, wd, c = WGRAD_SHAPE
-    require(dwconv_ops.bwd_is_split(h, wd, c), f"{WGRAD_SHAPE} no longer splits")
-    x, g = randn(gen, *WGRAD_SHAPE), randn(gen, *WGRAD_SHAPE)
-    w = randn(gen, 7, 7, c, scale=0.15)
-    dw, ref = depthwise_conv7x7_wgrad(x, g), depthwise_conv7x7_wgrad_reference(x, g)
-    require(max_rel(dw, ref) <= DW_REL_TOL, f"dwconv wgrad rel err {max_rel(dw, ref)}")
-    require(torch.equal(depthwise_conv7x7_wgrad(x, g), dw),
-            "dwconv wgrad differs between two runs")
-    (sdx, sdw), (fdx, fdw) = depthwise_conv7x7_bwd(x, g, w), dwconv_ops.fused_bwd(x, g, w)
-    ulps, srel = bf16_ulp_distance(sdx, fdx), max_rel(sdw, fdw)
-    split_ms = time_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 10)
-    fused_ms = time_ms(lambda: dwconv_ops.fused_bwd(x, g, w), 10)
-    split_dev = device_ms(lambda: depthwise_conv7x7_bwd(x, g, w), 20)
-    fused_dev = device_ms(lambda: dwconv_ops.fused_bwd(x, g, w), 20)
-    print(f"dwconv bwd {WGRAD_SHAPE}: split route (forward on g + wgrad) "
-          f"{split_ms:.4f} ms, fused kernel {fused_ms:.4f} ms (CUDA events); "
-          f"device time {split_dev:.4f} and {fused_dev:.4f} ms; split vs fused: "
-          f"dx {ulps} ulps, dw max rel {srel:.3g}; wgrad vs plain max rel "
-          f"{max_rel(dw, ref):.3g}", flush=True)
-    require(ulps <= ULP_TOL and srel <= SPLIT_DW_REL_TOL,
-            f"split vs fused backward: dx {ulps} ulps, dw rel {srel}")
-    n = x.numel()
-    ms, lib_ms = kernel_and_library_ms(f"dwconv wgrad {WGRAD_SHAPE}",
-                                       lambda: depthwise_conv7x7_wgrad(x, g),
-                                       library_dwconv_wgrad(x, g, w))
-    table.add("dwconv_wgrad", WGRAD_SHAPE, ENTRY_DEPTHS[0] * ACCUM,
-              (dw - ref).abs().max().item(), ms,
-              time_ms(lambda: depthwise_conv7x7_wgrad_reference(x, g), 3), lib_ms,
-              4 * n + 4 * dw.numel(), 2 * 49 * n, FP32_FLOPS)
+def check_gemm_core(gen) -> None:
+    """The block tail backward's GEMM core alone (``ic_block_mlp_gemm``),
+    each of its four products in the operands' own layouts, against
+    ``torch.matmul`` in f32: dh = du W2 and dxhat = da W1 (A K-major, B the
+    (out, in) weight read MN-major), dW1 = da^T xhat and dW2 = du^T h (both
+    operands MN-major, K = M)."""
+    m, c = GEMM_CHECK_SHAPE
+    du, xhat = randn(gen, m, c), randn(gen, m, c)
+    da, h = randn(gen, m, 4 * c), randn(gen, m, 4 * c)
+    w1 = randn(gen, 4 * c, c, scale=c ** -0.5)
+    w2 = randn(gen, c, 4 * c, scale=(4 * c) ** -0.5)
+    lib = _build.library()
+    for name, a, b, a_kmajor, rows, ref in (
+            ("dh = du @ W2", du, w2, True, m, du.float() @ w2.float()),
+            ("dxhat = da @ W1", da, w1, True, m, da.float() @ w1.float()),
+            ("dW1 = da^T @ xhat", da, xhat, False, 4 * c, da.float().t() @ xhat.float()),
+            ("dW2 = du^T @ h", du, h, False, c, du.float().t() @ h.float())):
+        out = torch.empty(rows, b.shape[1], dtype=torch.float32, device="cuda")
+        k = a.shape[1] if a_kmajor else a.shape[0]
+        code = lib.ic_block_mlp_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     int(a_kmajor), 0, rows, b.shape[1], k,
+                                     torch.cuda.current_stream().cuda_stream)
+        _build.check(code, f"GEMM core {name}")
+        torch.cuda.synchronize()
+        rel = max_rel(out, ref)
+        print(f"GEMM core {name} ({rows} x {b.shape[1]}, K = {k}): max rel err "
+              f"{rel:.3g} against torch.matmul in f32", flush=True)
+        require(bool(torch.isfinite(out).all()) and rel <= GEMM_REL_TOL,
+                f"GEMM core {name}: rel err {rel}")
+
+
+def check_block_bwd_edges(gen) -> None:
+    """The bf16 block tail backward at BLOCK_BWD_EDGES against its plain
+    version (BLOCK_REL_TOL of each output's largest element), twice for the
+    same bits."""
+    for m, c in BLOCK_BWD_EDGES:
+        args = block_tail_inputs(gen, m, c, torch.bfloat16)
+        _, a, u = block_mlp_fwd(*args, 1e-6, save=True)
+        bwd_args = (args[0], a, u, *args[2:], randn(gen, m, c))
+        ours, ref = block_mlp_bwd(*bwd_args), block_mlp_bwd_reference(*bwd_args)
+        rels = [max_rel(o, r) for o, r in zip(ours, ref)]
+        print(f"block tail bwd {(m, c)}: max rel err of the nine gradients "
+              f"{max(rels):.3g}", flush=True)
+        require(max(rels) <= BLOCK_REL_TOL, f"block tail bwd {(m, c)}: rel errs {rels}")
+        require(all(torch.equal(p, q) for p, q in zip(ours, block_mlp_bwd(*bwd_args))),
+                f"block tail bwd {(m, c)} differs between two runs")
 
 
 def check_kernels() -> list[dict]:
@@ -543,8 +566,10 @@ def check_kernels() -> list[dict]:
     is not a multiple of the block tail's 128-wide GEMM tile). The
     ``kernels`` line sums ConvNeXt-L's times over one optimizer step."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    check_gemm_core(gen)
     check_f32_paths(gen)
     check_edge_shapes(gen)
+    check_block_bwd_edges(gen)
     for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, DIMS, DEPTHS)):
         print(f"{MODEL} stage {stage}:", flush=True)
         check_stage(KernelTable(), gen, stage, hw, c, VIEWS_BATCH, depth)
@@ -553,7 +578,6 @@ def check_kernels() -> list[dict]:
         print(f"{ENTRY_MODEL} stage {stage}:", flush=True)
         check_stage(table, gen, stage, hw, c, MICRO, depth * ACCUM)
     check_warp(table, gen)
-    check_wgrad(table, gen)
     return table.entries(KERNEL_META)
 
 
@@ -561,10 +585,10 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
                 fwd_batch: int, per: int) -> None:
     """One stage's kernels in bf16 against their plain versions: the
     forward ones on ``fwd_batch`` maps, the backward ones on MICRO; timed
-    and added to ``table`` as ``per`` launches each. Where the depthwise
-    backward splits, its dx adds ``per`` launches of the forward kernel at
-    the same shape, and its wgrad is timed in check_wgrad."""
-    split = dwconv_ops.bwd_is_split(hw, hw, c)
+    and added to ``table`` as ``per`` launches each. The depthwise backward's
+    dx adds ``per`` launches of the forward kernel, counted at the forward's
+    shape (the table that is kept has fwd_batch = MICRO); its row holds the
+    whole route (dx and dw), and the wgrad kernel has its own row too."""
     x = randn(gen, fwd_batch, hw, hw, c)
     w = randn(gen, 7, 7, c, scale=0.15)
     y, ref = depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w)
@@ -574,7 +598,7 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
     ms, lib_ms = kernel_and_library_ms(f"dwconv {tuple(x.shape)}",
                                        lambda: depthwise_conv7x7(x, w),
                                        library_dwconv(x, w))
-    table.add("dwconv", tuple(x.shape), per * (1 + split),
+    table.add("dwconv", tuple(x.shape), per * 2,
               (y.float() - ref.float()).abs().max().item(), ms,
               time_ms(lambda: depthwise_conv7x7_reference(x, w), 5), lib_ms,
               4 * n, 2 * 49 * n, FP32_FLOPS)
@@ -610,24 +634,27 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
     w = randn(gen, 7, 7, c, scale=0.15)
     (dx, dw), (rdx, rdw) = (depthwise_conv7x7_bwd(x, g, w),
                             depthwise_conv7x7_bwd_reference(x, g, w))
-    ulps = bf16_ulp_distance(dx, rdx)
-    require(ulps <= ULP_TOL, f"dwconv bwd stage {stage} {tuple(x.shape)}: dx {ulps} ulps")
-    require(max_rel(dw, rdw) <= DW_REL_TOL,
-            f"dwconv bwd stage {stage} {tuple(x.shape)}: dw rel err {max_rel(dw, rdw)}")
-    require(torch.equal(depthwise_conv7x7_bwd(x, g, w)[1], dw),
-            "dwconv bwd: dw differs between two runs")
+    shape = tuple(x.shape)
+    ulps, dw_rel = bf16_ulp_distance(dx, rdx), max_rel(dw, rdw)
+    print(f"dwconv bwd {shape} (split route): dx {ulps} ulps, dw max rel "
+          f"{dw_rel:.3g} against the plain version", flush=True)
+    require(ulps <= ULP_TOL, f"dwconv bwd stage {stage} {shape}: dx {ulps} ulps")
+    require(dw_rel <= DW_REL_TOL, f"dwconv bwd stage {stage} {shape}: dw rel err {dw_rel}")
+    require(all(torch.equal(p, q) for p, q in zip(depthwise_conv7x7_bwd(x, g, w), (dx, dw))),
+            "dwconv bwd differs between two runs")
     n = x.numel()
-    if not split:
-        ms, lib_ms = kernel_and_library_ms(f"dwconv bwd {tuple(x.shape)}",
-                                           lambda: depthwise_conv7x7_bwd(x, g, w),
-                                           library_dwconv_bwd(x, g, w))
-        table.add("dwconv_bwd", tuple(x.shape), per,
-                  (dx.float() - rdx.float()).abs().max().item(), ms,
-                  time_ms(lambda: depthwise_conv7x7_bwd_reference(x, g, w), 3), lib_ms,
-                  6 * n, 4 * 49 * n, FP32_FLOPS)
-    else:
-        print(f"dwconv bwd {tuple(x.shape)} (split route): dx {ulps} ulps, dw max "
-              f"rel {max_rel(dw, rdw):.3g} against the plain version", flush=True)
+    ms, lib_ms = kernel_and_library_ms(f"dwconv bwd {shape}",
+                                       lambda: depthwise_conv7x7_bwd(x, g, w),
+                                       library_dwconv_bwd(x, g, w))
+    table.add("dwconv_bwd", shape, per, (dx.float() - rdx.float()).abs().max().item(),
+              ms, time_ms(lambda: depthwise_conv7x7_bwd_reference(x, g, w), 3), lib_ms,
+              6 * n, 4 * 49 * n, FP32_FLOPS)
+    ms, lib_ms = kernel_and_library_ms(f"dwconv wgrad {shape}",
+                                       lambda: depthwise_conv7x7_wgrad(x, g),
+                                       library_dwconv_wgrad(x, g, w))
+    table.add("dwconv_wgrad", shape, per, (dw - rdw).abs().max().item(), ms,
+              time_ms(lambda: depthwise_conv7x7_wgrad_reference(x, g), 3), lib_ms,
+              4 * n + 4 * dw.numel(), 2 * 49 * n, FP32_FLOPS)
     del x, g, dx, dw, rdx, rdw
     if block_mlp_available(c):
         m = MICRO * hw * hw
@@ -652,7 +679,7 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
         table.add("block_mlp_bwd", (m, c), per,
                   (ours[0].float() - ref[0].float()).abs().max().item(), ms,
                   time_ms(lambda: block_mlp_bwd_reference(*bwd_args), 2),
-                  None, 16 * m * c + 16 * c * c, 32 * m * c * c,
+                  None, 16 * m * c + 48 * c * c, 32 * m * c * c,
                   BF16_TENSOR_FLOPS)
         del args, y, a, u, dy, bwd_args, ours, ref, again
     else:
@@ -968,11 +995,13 @@ def run_train() -> dict:
     accum = cfg.gradient_accumulation_steps
     per_step = {"dwconv": sum(DEPTHS), "block_mlp": sum(DEPTHS[:3]),
                 "gelu": DEPTHS[3]}
-    # one warp of the whole batch a step; no map of ConvNeXt-B splits the
-    # depthwise backward
-    want = {"warp": TRAIN_STEPS, "dwconv_wgrad": 0}
+    # one warp of the whole batch a step; every depthwise backward launches
+    # the forward stencil (dx) and the wgrad kernel
+    want = {"warp": TRAIN_STEPS}
     for k, n_fwd in per_step.items():
         want[k] = want[f"{k}_bwd"] = n_fwd * accum * TRAIN_STEPS
+    want["dwconv"] *= 2
+    want["dwconv_wgrad"] = want["dwconv_bwd"]
     for name, n in want.items():
         require(launches[name] == n, f"{name}: {launches[name]} launches "
                 f"in {TRAIN_STEPS} steps, expected {n}")
@@ -1041,7 +1070,7 @@ def time_entry_step(cfg) -> dict:
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     require(np.isfinite(float(m["loss"])), "non-finite ConvNeXt-L train loss")
-    require(launches["dwconv_wgrad"] == ENTRY_DEPTHS[0] * cfg.gradient_accumulation_steps
+    require(launches["dwconv_wgrad"] == sum(ENTRY_DEPTHS) * cfg.gradient_accumulation_steps
             * TRAIN_STEPS, f"wgrad launches {launches['dwconv_wgrad']}")
     print(f"{ENTRY_MODEL} train step alone: {TRAIN_STEPS * cfg.batch_size / wall:.2f} "
           f"images/s ({TRAIN_STEPS} steps of {cfg.batch_size} in {wall:.3f} s), peak "
@@ -1268,7 +1297,7 @@ def _run_train_entry(tmp: str, kernels: list[dict]) -> dict:
             f"submission has {len(sub)} lines, header {sub[:1]}")
 
     # Launches: per optimizer step two microbatches forward and backward,
-    # the stage-0 backward as the forward on g plus the wgrad; per
+    # each depthwise backward as the forward on g plus the wgrad; per
     # validation batch and per fold model's test batch one forward.
     steps = sum(r["steps"] for r in records)
     val_sizes = [len(v) for _, v in stratified_kfold(labels, ENTRY_FOLDS, cfg.fold_seed)]
@@ -1279,11 +1308,11 @@ def _run_train_entry(tmp: str, kernels: list[dict]) -> dict:
     d = ENTRY_DEPTHS
     fwd = {"dwconv": sum(d), "block_mlp": d[0] + d[1], "gelu": d[2] + d[3]}
     want = {k: n * (accum * steps + forwards) for k, n in fwd.items()}
-    want["dwconv"] += d[0] * accum * steps
-    want.update(dwconv_bwd=(d[1] + d[2] + d[3]) * accum * steps,
+    want["dwconv"] += sum(d) * accum * steps
+    want.update(dwconv_bwd=sum(d) * accum * steps,
                 block_mlp_bwd=fwd["block_mlp"] * accum * steps,
                 gelu_bwd=fwd["gelu"] * accum * steps,
-                dwconv_wgrad=d[0] * accum * steps, warp=steps)
+                dwconv_wgrad=sum(d) * accum * steps, warp=steps)
     print(f"cli train: {train_s:.3f} s, {steps} optimizer steps, {forwards} "
           f"forwards without gradient, launches {launches}; per optimizer step "
           f"the wgrad kernel {launches['dwconv_wgrad'] / steps:g}; peak memory "

@@ -1,11 +1,13 @@
 // ConvNeXt block tail: y = res + g * (GELU(LN(x) @ W1^T + b1) @ W2^T + b2),
 // forward (for inference, and for training with the residuals the backward
-// needs) and backward.
+// needs) and, in f32 only, backward. The bf16 backward is in
+// block_mlp_bwd.cu.
 //
 // Replaces: image_classification_tpu/ops/block_mlp.py:_run_fwd (body
 // _fwd_kernel, the fused forward Pallas kernel, which under grad also stores
 // a = fc1 output before GELU and u = fc2 output, both in the working dtype)
-// and _block_mlp_bwd (body _bwd_kernel, the fused backward).
+// and, for f32 tensors, _block_mlp_bwd (body _bwd_kernel, the fused
+// backward).
 //
 // What bounds it on the H100: the matrix products. The forward runs two of
 // 2 * M * C * 4C FLOP, the backward four (dh, dxhat, dW1, dW2), 32 * M * C^2
@@ -28,7 +30,7 @@
 //       epilogue keeps the output equal to the Pallas kernel's;
 //   (c) y = res + g * (h @ W2^T + b2), epilogue: residual; for training it
 //       also stores u = h @ W2^T + b2 rounded (y itself uses u unrounded).
-//   backward (the order of _bwd_kernel)
+//   f32 backward (the order of _bwd_kernel)
 //   (d) bwd_prep rows: xhat recomputed from x and stored rounded (dW1's
 //       operand); du = dy * g stored rounded; f32 column partials of du (db2)
 //       and of dy * u_saved (dg);
@@ -45,22 +47,16 @@
 // Blocks run in no order on Hopper, so the TPU's grid-carried f32 sums
 // become per-block partials plus that pass: no float atomics, so two runs
 // give the same bits. Rows past M load as zeros and add nothing to any sum.
-// dxhat goes through device memory in f32 (4 * M * C bytes each way) rather
-// than the LN backward running in the GEMM's epilogue over whole rows: the
-// simple form first; fusing it is later work, as are wgmma/TMA.
 //
-// The bf16 GEMM runs on the tensor cores through WMMA (16x16x16 bf16
-// fragments, f32 accumulation), with 128x128x32 block tiles staged through
-// shared memory by 16-byte loads, the next k-tile prefetched into registers
-// while the current one is multiplied. Each operand is read either K-major
-// (stored (rows, K)) or row-major (stored (K, rows)), so the weights stay in
-// nn.Linear's (out, in) layout in every product and no operand is
-// transposed in memory. The f32 path is a plain FMA tiling, kept for exact
-// checks against the f32 plain version.
+// The forward's bf16 GEMM runs on the tensor cores through WMMA (16x16x16
+// bf16 fragments, f32 accumulation), with 128x128x32 block tiles staged
+// through shared memory by 16-byte loads, the next k-tile prefetched into
+// registers while the current one is multiplied; both operands are K-major,
+// so the weights stay in nn.Linear's (out, in) layout. The f32 path is a
+// plain FMA tiling that reads each operand K-major or row-major, kept for
+// exact checks against the f32 plain version.
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -72,8 +68,8 @@ using bf16 = __nv_bfloat16;
 enum Epilogue : int {
   EPI_BIAS_GELU = 0,            // out = gelu(acc + bias); aux = acc + bias
   EPI_BIAS_SCALE_RESIDUAL = 1,  // out = res + gamma*(acc + bias); aux = acc + bias
-  EPI_DGELU = 2,                // out = acc * gelu'(res); f32 column partials
-  EPI_F32 = 3,                  // out (f32) = acc, in split blockIdx.z's slab
+  EPI_DGELU = 2,                // out = acc * gelu'(res); f32 column partials (f32 only)
+  EPI_F32 = 3,                  // out (f32) = acc, in split blockIdx.z's slab (f32 only)
 };
 
 // What an epilogue reads and writes; which members it uses depends on EPI.
@@ -291,84 +287,60 @@ __global__ void sum_rows_kernel(const float* __restrict__ part, int R,
 }
 
 // --------------------------------------------------------- bf16 WMMA GEMM
-// out[M, N] = epilogue(sum over k in this split of A(m, k) * B(n, k)).
-// A_KMAJOR: A is stored (M, K), else (K, M); B_KMAJOR: B is stored (N, K),
-// else (K, N). K-major operands need K % 8 == 0, the others M or N % 8 == 0
-// (whole 16-byte chunks). GELU_B: B's elements pass through the exact GELU,
-// rounded to bf16, as they are staged.
+// out[M, N] = epilogue(sum over k of A(m, k) * B(n, k)), the forward's
+// epilogues. A is stored (M, K), B (N, K); K % 8 == 0 (whole 16-byte
+// chunks).
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int LDK = BK + 8;           // pitch of a K-major tile [128][40]
-constexpr int LDR = BM + 8;           // pitch of a row-major tile [32][136]
-constexpr int TILE_ELEMS = BM * LDK;  // >= BK * LDR
+constexpr int TILE_ELEMS = BM * LDK;
 constexpr int GEMM_THREADS = 256;     // 8 warps: 4 along M x 2 along N
 constexpr int WM = 32, WN = 64;       // warp tile
 constexpr int FM = WM / 16, FN = WN / 16;
 constexpr int CHUNKS = BM * BK / 8 / GEMM_THREADS;  // 16-byte loads a thread
 static_assert(BM == BN, "one tile shape serves A and B");
 
-template <bool KMAJOR>
 __device__ __forceinline__ void load_tile_regs(const bf16* src, int64_t rows,
                                                int64_t K, int64_t row0,
-                                               int64_t k0, int64_t k_end,
-                                               uint4 (&regs)[CHUNKS]) {
+                                               int64_t k0, uint4 (&regs)[CHUNKS]) {
 #pragma unroll
   for (int i = 0; i < CHUNKS; ++i) {
     const int idx = threadIdx.x + i * GEMM_THREADS;
-    int64_t gr, gk;
-    if constexpr (KMAJOR) {
-      gr = row0 + idx / (BK / 8);
-      gk = k0 + (idx % (BK / 8)) * 8;
-    } else {
-      gk = k0 + idx / (BM / 8);
-      gr = row0 + (idx % (BM / 8)) * 8;
-    }
-    if (gr < rows && gk < k_end) {
-      const bf16* p = KMAJOR ? src + gr * K + gk : src + gk * rows + gr;
-      regs[i] = *reinterpret_cast<const uint4*>(p);
+    const int64_t gr = row0 + idx / (BK / 8);
+    const int64_t gk = k0 + (idx % (BK / 8)) * 8;
+    if (gr < rows && gk < K) {
+      regs[i] = *reinterpret_cast<const uint4*>(src + gr * K + gk);
     } else {
       regs[i] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-template <bool KMAJOR, bool GELU>
 __device__ __forceinline__ void store_tile_smem(bf16* tile,
                                                 const uint4 (&regs)[CHUNKS]) {
 #pragma unroll
   for (int i = 0; i < CHUNKS; ++i) {
     const int idx = threadIdx.x + i * GEMM_THREADS;
-    const int off = KMAJOR ? (idx / (BK / 8)) * LDK + (idx % (BK / 8)) * 8
-                           : (idx / (BM / 8)) * LDR + (idx % (BM / 8)) * 8;
-    uint4 v = regs[i];
-    if constexpr (GELU) {
-      bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16_rn(ic_gelu_erf_as(__bfloat162float(e[j])));
-    }
-    *reinterpret_cast<uint4*>(tile + off) = v;
+    *reinterpret_cast<uint4*>(tile + (idx / (BK / 8)) * LDK + (idx % (BK / 8)) * 8) =
+        regs[i];
   }
 }
 
-template <int EPI, bool A_KMAJOR, bool B_KMAJOR, bool GELU_B>
+template <int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_bf16_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                      Epi e, int64_t M, int N, int64_t K, int64_t kchunk) {
+                      Epi e, int64_t M, int N, int64_t K) {
+  static_assert(EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_SCALE_RESIDUAL,
+                "the bf16 WMMA path runs the forward's epilogues");
   __shared__ __align__(128) bf16 As[TILE_ELEMS];
   __shared__ __align__(128) bf16 Bs[TILE_ELEMS];
   __shared__ __align__(128) float Cs[GEMM_THREADS / 32][16 * 16];
-  __shared__ float colsm[BM / WM][BN];
 
-  using LayoutA = std::conditional_t<A_KMAJOR, wmma::row_major, wmma::col_major>;
-  using LayoutB = std::conditional_t<B_KMAJOR, wmma::col_major, wmma::row_major>;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wm = warp / (BN / WN);    // 0..3
   const int wn = warp % (BN / WN);    // 0..1
   const int64_t m0 = (int64_t)blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int64_t k_begin = (int64_t)blockIdx.z * kchunk;
-  const int64_t k_end = k_begin + kchunk < K ? k_begin + kchunk : K;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
@@ -377,38 +349,26 @@ gemm_bf16_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   uint4 ra[CHUNKS], rb[CHUNKS];
-  load_tile_regs<A_KMAJOR>(A, M, K, m0, k_begin, k_end, ra);
-  load_tile_regs<B_KMAJOR>(B, N, K, n0, k_begin, k_end, rb);
-  for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
-    store_tile_smem<A_KMAJOR, false>(As, ra);
-    store_tile_smem<B_KMAJOR, GELU_B>(Bs, rb);
+  load_tile_regs(A, M, K, m0, 0, ra);
+  load_tile_regs(B, N, K, n0, 0, rb);
+  for (int64_t k0 = 0; k0 < K; k0 += BK) {
+    store_tile_smem(As, ra);
+    store_tile_smem(Bs, rb);
     __syncthreads();
-    if (k0 + BK < k_end) {  // prefetch the next k-tile while this one multiplies
-      load_tile_regs<A_KMAJOR>(A, M, K, m0, k0 + BK, k_end, ra);
-      load_tile_regs<B_KMAJOR>(B, N, K, n0, k0 + BK, k_end, rb);
+    if (k0 + BK < K) {  // prefetch the next k-tile while this one multiplies
+      load_tile_regs(A, M, K, m0, k0 + BK, ra);
+      load_tile_regs(B, N, K, n0, k0 + BK, rb);
     }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[FN];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[FN];
 #pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int r = wm * WM + i * 16;
-        if constexpr (A_KMAJOR) {
-          wmma::load_matrix_sync(fa[i], As + r * LDK + kk, LDK);
-        } else {
-          wmma::load_matrix_sync(fa[i], As + kk * LDR + r, LDR);
-        }
-      }
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * WM + i * 16) * LDK + kk, LDK);
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int c = wn * WN + j * 16;
-        if constexpr (B_KMAJOR) {
-          wmma::load_matrix_sync(fb[j], Bs + c * LDK + kk, LDK);
-        } else {
-          wmma::load_matrix_sync(fb[j], Bs + kk * LDR + c, LDR);
-        }
-      }
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + (wn * WN + j * 16) * LDK + kk, LDK);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -419,14 +379,10 @@ gemm_bf16_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
 
   // Epilogue: each warp stages one 16x16 fragment at a time in its own
-  // scratch, then each lane finishes 8 consecutive columns of one row. For
-  // EPI_DGELU lanes 0..15 then sum the fragment's columns, in row order.
+  // scratch, then each lane finishes 8 consecutive columns of one row.
   float* scratch = Cs[warp];
   const int r = lane / 2;
   const int cc = (lane % 2) * 8;
-  float csum[FN];
-#pragma unroll
-  for (int j = 0; j < FN; ++j) csum[j] = 0.0f;
 #pragma unroll
   for (int i = 0; i < FM; ++i) {
 #pragma unroll
@@ -437,35 +393,10 @@ gemm_bf16_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
       const int nb = n0 + wn * WN + j * 16 + cc;
 #pragma unroll
       for (int v = 0; v < 8; ++v) {
-        float val = 0.0f;
         if (m < M && nb + v < N)
-          val = store_epilogue<EPI, bf16>(scratch[r * 16 + cc + v], m, nb + v,
-                                          M, N, e);
-        if constexpr (EPI == EPI_DGELU) scratch[r * 16 + cc + v] = val;
+          store_epilogue<EPI, bf16>(scratch[r * 16 + cc + v], m, nb + v, M, N, e);
       }
       __syncwarp();
-      if constexpr (EPI == EPI_DGELU) {
-        if (lane < 16) {
-          float s = 0.0f;
-          for (int rr = 0; rr < 16; ++rr) s += scratch[rr * 16 + lane];
-          csum[j] += s;
-        }
-        __syncwarp();
-      }
-    }
-  }
-  if constexpr (EPI == EPI_DGELU) {
-    if (lane < 16) {
-#pragma unroll
-      for (int j = 0; j < FN; ++j) colsm[wm][wn * WN + j * 16 + lane] = csum[j];
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < BN; t += GEMM_THREADS) {
-      if (n0 + t < N) {
-        float s = 0.0f;
-        for (int w = 0; w < BM / WM; ++w) s += colsm[w][t];
-        e.colsum[(int64_t)blockIdx.y * N + n0 + t] = s;
-      }
     }
   }
 }
@@ -552,14 +483,16 @@ template <int EPI, bool A_KMAJOR, bool B_KMAJOR, bool GELU_B>
 cudaError_t launch_gemm(int dtype, const void* A, const void* B, const Epi& e,
                         int64_t M, int N, int64_t K, int splits,
                         int64_t kchunk, cudaStream_t st) {
-  if (dtype == IC_BF16) {
-    const dim3 grid((N + BN - 1) / BN, (unsigned)gemm_row_tiles(dtype, M),
-                    splits);
-    gemm_bf16_wmma_kernel<EPI, A_KMAJOR, B_KMAJOR, GELU_B>
-        <<<grid, GEMM_THREADS, 0, st>>>(static_cast<const bf16*>(A),
-                                        static_cast<const bf16*>(B), e, M, N,
-                                        K, kchunk);
-  } else {
+  if constexpr (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_SCALE_RESIDUAL) {
+    if (dtype == IC_BF16) {  // the forward: K-major operands, no split
+      static_assert(A_KMAJOR && B_KMAJOR && !GELU_B, "the forward's products");
+      const dim3 grid((N + BN - 1) / BN, (unsigned)gemm_row_tiles(dtype, M));
+      gemm_bf16_wmma_kernel<EPI><<<grid, GEMM_THREADS, 0, st>>>(
+          static_cast<const bf16*>(A), static_cast<const bf16*>(B), e, M, N, K);
+      return cudaGetLastError();
+    }
+  }
+  {
     const dim3 grid((N + FBN - 1) / FBN, (unsigned)gemm_row_tiles(dtype, M),
                     splits);
     gemm_f32_fma_kernel<EPI, A_KMAJOR, B_KMAJOR, GELU_B>
@@ -586,30 +519,29 @@ struct Split {
   int64_t kchunk;
 };
 
-Split weight_grad_split(int dtype, int I, int J, int64_t K) {
-  const int bm = dtype == IC_BF16 ? BM : FBM, bn = dtype == IC_BF16 ? BN : FBN;
-  const int64_t tiles = (int64_t)((I + bm - 1) / bm) * ((J + bn - 1) / bn);
+Split weight_grad_split(int I, int J, int64_t K) {
+  const int64_t tiles = (int64_t)((I + FBM - 1) / FBM) * ((J + FBN - 1) / FBN);
   int64_t s = (SPLIT_TARGET_BLOCKS + tiles - 1) / tiles;
-  const int64_t ktiles = (K + BK - 1) / BK;
+  const int64_t ktiles = (K + FBK - 1) / FBK;
   if (s > ktiles) s = ktiles;
   if (s < 1) s = 1;
-  const int64_t kchunk = ((ktiles + s - 1) / s) * BK;
+  const int64_t kchunk = ((ktiles + s - 1) / s) * FBK;
   return {(int)((K + kchunk - 1) / kchunk), kchunk};
 }
 
-// Offsets (in floats) of the backward's f32 scratch.
+// Offsets (in floats) of the f32 backward's scratch.
 struct BwdScratch {
   int64_t prep, db1, ln, split, total;
   int rows_blocks, gemm_rows;
   Split s1, s2;
 };
 
-BwdScratch bwd_scratch(int64_t M, int C, int H4, int dtype) {
+BwdScratch bwd_scratch(int64_t M, int C, int H4) {
   BwdScratch b;
   b.rows_blocks = (int)((M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  b.gemm_rows = (int)gemm_row_tiles(dtype, M);
-  b.s1 = weight_grad_split(dtype, H4, C, M);
-  b.s2 = weight_grad_split(dtype, C, H4, M);
+  b.gemm_rows = (int)gemm_row_tiles(IC_F32, M);
+  b.s1 = weight_grad_split(H4, C, M);
+  b.s2 = weight_grad_split(C, H4, M);
   b.prep = 0;                                          // 2 x (rows_blocks, C)
   b.db1 = b.prep + 2 * (int64_t)b.rows_blocks * C;     // (gemm_rows, H4)
   b.ln = b.db1 + (int64_t)b.gemm_rows * H4;            // 2 x (rows_blocks, C)
@@ -629,29 +561,6 @@ cudaError_t launch_ln(const void* x, const void* s, const void* t, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_prep(const void* x, const void* u, const void* dy,
-                        const void* s, const void* t, const void* g,
-                        void* xhat, void* du, float* p0, float* p1,
-                        int blocks, int64_t M, int C, float eps,
-                        cudaStream_t st) {
-  bwd_prep_kernel<T><<<blocks, LN_THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(u),
-      static_cast<const T*>(dy), static_cast<const T*>(s),
-      static_cast<const T*>(t), static_cast<const T*>(g), static_cast<T*>(xhat),
-      static_cast<T*>(du), p0, p1, M, C, eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_ln_bwd(const void* x, const float* dxhat, const void* s,
-                          void* dx, float* p0, float* p1, int blocks,
-                          int64_t M, int C, float eps, cudaStream_t st) {
-  ln_bwd_kernel<T><<<blocks, LN_THREADS, 0, st>>>(
-      static_cast<const T*>(x), dxhat, static_cast<const T*>(s),
-      static_cast<T*>(dx), p0, p1, M, C, eps);
-  return cudaGetLastError();
-}
 
 #define IC_TRY(expr)                        \
   do {                                      \
@@ -685,17 +594,17 @@ extern "C" int ic_block_mlp_fwd(const void* x, const void* res, const void* s,
       dtype, h, w2, fc2, M, C, H4, 1, H4, st);
 }
 
-// Floats of f32 scratch ic_block_mlp_bwd needs for these shapes.
+// Floats of f32 scratch ic_block_mlp_bwd needs for these shapes (f32 only).
 extern "C" int64_t ic_block_mlp_bwd_scratch(int64_t M, int C, int H4,
                                             int dtype) {
-  return bwd_scratch(M, C, H4, dtype).total;
+  return dtype == IC_F32 ? bwd_scratch(M, C, H4).total : -1;
 }
 
-// Inputs (storage dtype, contiguous): x, u, dy (M, C); a (M, H4); s, t, g
-// (C,); w1 (H4, C); w2 (C, H4). Scratch: xhat, du (M, C) and da (M, H4) in
-// the storage dtype; dxhat (M, C) f32; scratch f32 of the size above.
-// Outputs: dx (M, C) in the storage dtype; f32 ds, dt, db2, dg (C,), db1
-// (H4,), dw1 (H4, C), dw2 (C, H4).
+// The f32 backward (block_mlp_bwd.cu has the bf16 one). Inputs (f32,
+// contiguous): x, u, dy (M, C); a (M, H4); s, t, g (C,); w1 (H4, C); w2
+// (C, H4). Scratch: xhat, du, dxhat (M, C) and da (M, H4); scratch of the
+// size above. Outputs, written outright: dx (M, C); ds, dt, db2, dg (C,), db1
+// (H4,), dw1 (H4, C), dw2 (C, H4). M >= 1.
 extern "C" int ic_block_mlp_bwd(
     const void* x, const void* a, const void* u, const void* s, const void* t,
     const void* w1, const void* w2, const void* g, const void* dy, void* xhat,
@@ -703,9 +612,8 @@ extern "C" int ic_block_mlp_bwd(
     void* dt, void* dw1, void* db1, void* dw2, void* db2, void* dg, int64_t M,
     int C, int H4, float eps, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != IC_F32 && dtype != IC_BF16) return cudaErrorInvalidValue;
-  if (C > MAX_C) return cudaErrorInvalidValue;
-  const BwdScratch b = bwd_scratch(M, C, H4, dtype);
+  if (dtype != IC_F32 || C > MAX_C || M < 1) return cudaErrorInvalidValue;
+  const BwdScratch b = bwd_scratch(M, C, H4);
   float* f = static_cast<float*>(scratch);
   float* p_db2 = f + b.prep;
   float* p_dg = p_db2 + (int64_t)b.rows_blocks * C;
@@ -716,11 +624,12 @@ extern "C" int ic_block_mlp_bwd(
   float* dxhat_f = static_cast<float*>(dxhat);
 
   // (d) xhat, du and the partials of db2, dg
-  IC_TRY(dtype == IC_BF16
-             ? launch_prep<bf16>(x, u, dy, s, t, g, xhat, du, p_db2, p_dg,
-                                 b.rows_blocks, M, C, eps, st)
-             : launch_prep<float>(x, u, dy, s, t, g, xhat, du, p_db2, p_dg,
-                                  b.rows_blocks, M, C, eps, st));
+  bwd_prep_kernel<float><<<b.rows_blocks, LN_THREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(u),
+      static_cast<const float*>(dy), static_cast<const float*>(s),
+      static_cast<const float*>(t), static_cast<const float*>(g),
+      static_cast<float*>(xhat), static_cast<float*>(du), p_db2, p_dg, M, C, eps);
+  IC_TRY(cudaGetLastError());
   IC_TRY(launch_sum_rows(p_db2, b.rows_blocks, C, static_cast<float*>(db2), st));
   IC_TRY(launch_sum_rows(p_dg, b.rows_blocks, C, static_cast<float*>(dg), st));
   // (e) da = (du @ W2) * gelu'(a), partials of db1
@@ -733,11 +642,10 @@ extern "C" int ic_block_mlp_bwd(
   IC_TRY((launch_gemm<EPI_F32, true, false, false>(dtype, da, w1, dxh, M, C, H4,
                                                    1, H4, st)));
   // (g) the LayerNorm backward, partials of ds, dt
-  IC_TRY(dtype == IC_BF16
-             ? launch_ln_bwd<bf16>(x, dxhat_f, s, dx, p_ds, p_dt,
-                                   b.rows_blocks, M, C, eps, st)
-             : launch_ln_bwd<float>(x, dxhat_f, s, dx, p_ds, p_dt,
-                                    b.rows_blocks, M, C, eps, st));
+  ln_bwd_kernel<float><<<b.rows_blocks, LN_THREADS, 0, st>>>(
+      static_cast<const float*>(x), dxhat_f, static_cast<const float*>(s),
+      static_cast<float*>(dx), p_ds, p_dt, M, C, eps);
+  IC_TRY(cudaGetLastError());
   IC_TRY(launch_sum_rows(p_ds, b.rows_blocks, C, static_cast<float*>(ds), st));
   IC_TRY(launch_sum_rows(p_dt, b.rows_blocks, C, static_cast<float*>(dt), st));
   // (h) dW1 (H4, C) = da^T @ xhat; dW2 (C, H4) = du^T @ GELU(a)

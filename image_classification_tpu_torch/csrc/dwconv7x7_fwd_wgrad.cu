@@ -1,14 +1,15 @@
 // 7x7 depthwise convolution, SAME padding, no bias, channels-last (NHWC): the
-// forward stencil and the wgrad-only backward (dw alone), the two kernels of
-// the split backward route. The fused backward (dx and dw in one pass) is in
-// dwconv7x7.cu.
+// forward stencil and the wgrad-only backward (dw alone). Together they are
+// the whole backward: dx is the forward stencil on g with the flipped filter.
 //
 // Replaces: image_classification_tpu/ops/dwconv.py:_conv_same_pallas (body
-// _fwd_kernel) and _wgrad_pallas (body _dw_kernel). _bwd_pallas splits the
-// backward into the forward stencil on g with the flipped filter (dx) and
-// _wgrad_pallas (dw) where its VMEM estimate of one image passes 16 MiB
-// (stage 0 of ConvNeXt-L at 260 px); the port's ops/dwconv.py routes the
-// same way. The forward also serves every block's forward pass.
+// _fwd_kernel), _wgrad_pallas (body _dw_kernel) and, as that pair,
+// _bwd_pallas (body _bwd_kernel, dx and dw in one pass where its VMEM
+// estimate of an image allows). On the H100 the backward is bound by its
+// FP32 operations, not its bytes: fusing dx and dw saves one read of g but
+// makes one thread hold the 49 taps, the 49 dw sums and its dx sums at
+// once, so ops/dwconv.py runs the two kernels at every shape, each with its
+// own register budget. The forward also serves every block's forward pass.
 //
 // What bounds them on the H100: instruction issue, the FP32 units first. An
 // output element of the forward costs 49 FMAs against 4 bytes moved in bf16

@@ -4,8 +4,8 @@ A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises. Each wrapper counts its launches in a plain
 integer attribute, ``<wrapper>.launches``. The forward ops (``block_mlp``,
 ``depthwise_conv7x7``, ``gelu``) are differentiable: under autograd their
-backwards call the backward wrappers (``*_bwd``; at large maps the depthwise
-backward calls the forward and ``depthwise_conv7x7_wgrad``). ``warp`` (the
+backwards call the backward wrappers (``*_bwd``; the depthwise backward
+calls the forward and ``depthwise_conv7x7_wgrad``). ``warp`` (the
 augmentation's bilinear resampling) is forward only.
 """
 

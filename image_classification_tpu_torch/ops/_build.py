@@ -45,14 +45,16 @@ _F = ctypes.c_float
 # code, the others a size.
 _SIGNATURES = {
     "ic_dwconv7x7_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "ic_dwconv7x7_bwd_groups": ([_I, _I, _I, _I], _I),
-    "ic_dwconv7x7_bwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "ic_dwconv7x7_wgrad_segs": ([_I, _I, _I, _I], _I),
     "ic_dwconv7x7_wgrad_partials": ([_I, _I, _I, _I], _I),
     "ic_dwconv7x7_wgrad": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "ic_block_mlp_fwd": ([_P] * 14 + [_I64, _I, _I, _F, _I, _P], _I),
     "ic_block_mlp_bwd_scratch": ([_I64, _I, _I, _I], _I64),
     "ic_block_mlp_bwd": ([_P] * 22 + [_I64, _I, _I, _F, _I, _P], _I),
+    "ic_block_mlp_bwd_bf16_scratch": ([_I64, _I], _I64),
+    "ic_block_mlp_bwd_bf16": ([_P] * 23 + [_I64, _I, _F, _P], _I),
+    "ic_block_mlp_gemm_splits": ([_I64, _I, _I64], _I),
+    "ic_block_mlp_gemm": ([_P] * 3 + [_I, _I, _I64, _I, _I64, _P], _I),
     "ic_warp": ([_P] * 3 + [_I] * 6 + [_P], _I),
 }
 

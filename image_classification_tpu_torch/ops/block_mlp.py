@@ -23,9 +23,11 @@ they feed a product, ``h = GELU(a_saved)`` is rounded, the column sums
 :func:`block_mlp` is the op the model calls; when autograd records it, it
 runs as :class:`_BlockMlpFunction`. On a CPU tensor both directions run their
 plain versions (:func:`block_mlp_fwd_reference`,
-:func:`block_mlp_bwd_reference`); on a CUDA tensor they launch
-``csrc/block_mlp.cu`` (row kernels and hand-written GEMMs with fused
-epilogues; see the note at its top), or raise.
+:func:`block_mlp_bwd_reference`); on a CUDA tensor they launch hand-written
+kernels, or raise: the forward and the f32 backward in ``csrc/block_mlp.cu``
+(row kernels and tiled GEMMs with fused epilogues), the bf16 backward in
+``csrc/block_mlp_bwd.cu`` (a GEMM core on wgmma fed by TMA; see the notes at
+their tops).
 """
 
 from __future__ import annotations
@@ -101,9 +103,10 @@ def block_mlp_bwd_reference(x, a, u, s, t, w1, b1, w2, b2, g, dy,
     return (dx, dy, *(v.to(p.dtype) for v, p in zip(grads, params)))
 
 
-def _prepare(name, x, res, s, t, w1, b1, w2, b2, g):
+def _prepare(name, x, res, s, t, w1, b1, w2, b2, g, unused=()):
     """Checks shapes for the CUDA kernels; returns the parameters cast to
-    x's dtype, contiguous, and the library module."""
+    x's dtype, contiguous (None for the names in ``unused``, which are not
+    cast), and the library module."""
     from image_classification_tpu_torch.ops import _build
 
     dt = x.dtype
@@ -125,8 +128,10 @@ def _prepare(name, x, res, s, t, w1, b1, w2, b2, g):
                          "(16-byte rows)")
     if -(-M // (128 if dt == torch.bfloat16 else 64)) > 65535:
         raise ValueError(f"{name}: M={M} rows exceed the launch grid")
-    args = [v.to(dt).contiguous() for v in (res, s, t, w1, b1, w2, b2, g)]
-    _build.require_cuda(name, x, *args)
+    names = ("res", "s", "t", "w1", "b1", "w2", "b2", "g")
+    args = [None if k in unused else v.to(dt).contiguous()
+            for k, v in zip(names, (res, s, t, w1, b1, w2, b2, g))]
+    _build.require_cuda(name, x, *(v for v in args if v is not None))
     return args, _build
 
 
@@ -169,13 +174,18 @@ def block_mlp_fwd(x, res, s, t, w1, b1, w2, b2, g, eps: float = 1e-6,
 
 def block_mlp_bwd(x, a, u, s, t, w1, b1, w2, b2, g, dy, eps: float = 1e-6):
     """The nine gradients ``(dx, dres, ds, dt, dw1, db1, dw2, db2, dg)`` of
-    :func:`block_mlp` at ``x`` with the saved ``a``, ``u``, for ``dy``."""
+    :func:`block_mlp` at ``x`` with the saved ``a``, ``u``, for ``dy``. bf16
+    runs ``csrc/block_mlp_bwd.cu`` (wgmma + TMA), f32 the FMA path of
+    ``csrc/block_mlp.cu``; both write every gradient outright."""
     if x.device.type == "cpu":
         return block_mlp_bwd_reference(x, a, u, s, t, w1, b1, w2, b2, g, dy, eps)
-    args, _build = _prepare("block_mlp_bwd", x, u, s, t, w1, b1, w2, b2, g)
+    args, _build = _prepare("block_mlp_bwd", x, u, s, t, w1, b1, w2, b2, g,
+                            unused=("b1", "b2"))
     dt = x.dtype
     M, C = x.shape
     H4 = w1.shape[0]
+    if M < 1:
+        raise ValueError("block_mlp_bwd: needs at least one row")
     for key, v, want in (("a", a, (M, H4)), ("dy", dy, (M, C))):
         if tuple(v.shape) != want or v.dtype != dt:
             raise ValueError(f"block_mlp_bwd: {key} is {tuple(v.shape)} "
@@ -185,33 +195,41 @@ def block_mlp_bwd(x, a, u, s, t, w1, b1, w2, b2, g, dy, eps: float = 1e-6):
     _build.require_cuda("block_mlp_bwd", x, a, dy)
     lib = _build.library()
     dev = x.device
-    code = _build.DTYPE_CODES[dt]
+    bf16 = dt == torch.bfloat16
     xhat, du, dx = (torch.empty_like(x) for _ in range(3))
     da = torch.empty((M, H4), dtype=dt, device=dev)
+    h = torch.empty((M, H4), dtype=dt, device=dev) if bf16 else None
     dxhat = torch.empty((M, C), dtype=torch.float32, device=dev)
-    scratch = torch.empty(max(lib.ic_block_mlp_bwd_scratch(M, C, H4, code), 1),
-                          dtype=torch.float32, device=dev)
+    floats = (lib.ic_block_mlp_bwd_bf16_scratch(M, C) if bf16 else
+              lib.ic_block_mlp_bwd_scratch(M, C, H4, _build.DTYPE_CODES[dt]))
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    ds, dt_, db2, dg = (torch.zeros(C, **f32) for _ in range(4))
-    db1 = torch.zeros(H4, **f32)
-    dw1 = torch.zeros((H4, C), **f32)
-    dw2 = torch.zeros((C, H4), **f32)
-    _aligned("block_mlp_bwd", x, a, dy, *args, xhat, du, da, dx)
-    if M:
-        with torch.cuda.device(dev):
+    ds, dt_, db2, dg = (torch.empty(C, **f32) for _ in range(4))
+    db1 = torch.empty(H4, **f32)
+    dw1 = torch.empty((H4, C), **f32)
+    dw2 = torch.empty((C, H4), **f32)
+    _aligned("block_mlp_bwd", x, a, dy, u_, s_, t_, w1_, w2_, g_, xhat, du, da,
+             dx, *([h] if bf16 else []))
+    inputs = (x, a, u_, s_, t_, w1_, w2_, g_, dy)
+    outputs = (dx, ds, dt_, dw1, db1, dw2, db2, dg)
+    with torch.cuda.device(dev):
+        if bf16:
+            err = lib.ic_block_mlp_bwd_bf16(
+                *(v.data_ptr() for v in (*inputs, xhat, du, da, h, dxhat,
+                                         scratch, *outputs)),
+                M, C, float(eps), _build.stream_ptr(x))
+        else:
             err = lib.ic_block_mlp_bwd(
-                x.data_ptr(), a.data_ptr(), u_.data_ptr(), s_.data_ptr(),
-                t_.data_ptr(), w1_.data_ptr(), w2_.data_ptr(), g_.data_ptr(),
-                dy.data_ptr(), xhat.data_ptr(), du.data_ptr(), da.data_ptr(),
-                dxhat.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
-                ds.data_ptr(), dt_.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                dw2.data_ptr(), db2.data_ptr(), dg.data_ptr(), M, C, H4,
-                float(eps), code, _build.stream_ptr(x))
-        _build.check(err, "block_mlp_bwd")
-        block_mlp_bwd.launches += 1
+                *(v.data_ptr() for v in (*inputs, xhat, du, da, dxhat, scratch,
+                                         *outputs)),
+                M, C, H4, float(eps), _build.DTYPE_CODES[dt],
+                _build.stream_ptr(x))
+    _build.check(err, "block_mlp_bwd")
+    block_mlp_bwd.launches += 1
     grads = (ds, dt_, dw1, db1, dw2, db2, dg)
     params = (s, t, w1, b1, w2, b2, g)
-    return (dx, dy, *(v.to(p.dtype) for v, p in zip(grads, params)))
+    return (dx, dy, *(v if v.dtype == p.dtype else v.to(p.dtype)
+                      for v, p in zip(grads, params)))
 
 
 class _BlockMlpFunction(torch.autograd.Function):

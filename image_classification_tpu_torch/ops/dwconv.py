@@ -19,20 +19,24 @@ casts ``w`` outside :class:`_DwconvFunction`, where autograd sees it. The
 conv bias is added by the caller (``models/convnext.py``), as in
 ``models/layers.py:PallasDWConv``.
 
-The backward routes as ``_bwd_pallas`` does: where the TPU kernel's VMEM
-estimate of one image (:func:`_bwd_bytes_per_image`) passes its budget
-(:data:`_VMEM_BUDGET`), as at stage 0 of ConvNeXt-L at 260 px, ``dx`` is the
-forward conv of ``g`` with the flipped filter and ``dw`` comes from the
-wgrad-only :func:`depthwise_conv7x7_wgrad`; elsewhere the fused backward
-computes both. The H100 has no such limit; the split is kept so that both
-packages run the same kernels at each shape.
+The backward computes ``_bwd_pallas``'s function at every shape as two
+kernels: ``dx`` is the forward conv of ``g`` with the flipped filter and
+``dw`` comes from the wgrad-only :func:`depthwise_conv7x7_wgrad`. The JAX
+package fuses both into one pass where its VMEM estimate of an image allows;
+on the H100 the backward is bound by its FP32 operations (4 x 49 FLOP an
+element), not by bytes, so fusing saves only one read of ``g``, while one
+thread would have to hold the 49 taps, the 49 dw sums and its dx sums at
+once. Split, each kernel keeps its own register budget, and the pair beats
+both the fused kernel and cuDNN's backward at every ConvNeXt-B and
+ConvNeXt-L stage (``tools/time_dwconv.py``). ``dx`` has the fused kernel's
+bits (both round the same f32 tap sums once) and ``dw`` sums the same
+rounded products in another order.
 
 On a CPU tensor the wrappers run the plain versions
 (:func:`depthwise_conv7x7_reference`, :func:`depthwise_conv7x7_wgrad_reference`,
 :func:`depthwise_conv7x7_bwd_reference`); on a CUDA tensor they launch the
-hand-written kernels, or raise: the forward stencil and the wgrad-only
-kernel of ``csrc/dwconv7x7_fwd_wgrad.cu`` and the fused backward of
-``csrc/dwconv7x7.cu`` (see the notes at their tops).
+hand-written kernels of ``csrc/dwconv7x7_fwd_wgrad.cu``, the forward stencil
+and the wgrad-only kernel, or raise (see the note at its top).
 """
 
 from __future__ import annotations
@@ -42,22 +46,6 @@ import torch.nn.functional as F
 
 K = 7
 PAD = K // 2
-
-# Mirrors image_classification_tpu/ops/dwconv.py: _bwd_pallas splits the
-# backward where _bwd_bytes_per_image(H, W, C) > _VMEM_BUDGET.
-_VMEM_BUDGET = 16 * 1024 * 1024
-
-
-def _bwd_bytes_per_image(H: int, W: int, C: int) -> int:
-    """The TPU fused backward's scoped-VMEM estimate for one image."""
-    center, padded = H * W * C, (H + 2 * PAD) * (W + 2 * PAD) * C
-    return 12 * padded + 16 * center
-
-
-def bwd_is_split(H: int, W: int, C: int) -> bool:
-    """True where the backward runs as the forward on ``g`` (dx) plus the
-    wgrad-only kernel (dw), as ``_bwd_pallas`` does."""
-    return _bwd_bytes_per_image(H, W, C) > _VMEM_BUDGET
 
 
 def depthwise_conv7x7_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -128,7 +116,7 @@ def _check_g(name: str, x: torch.Tensor, g: torch.Tensor) -> None:
 
 def depthwise_conv7x7_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``dw`` (7, 7, C) f32 of the conv at ``x`` for the output gradient
-    ``g``, alone (the split backward's half of ``_wgrad_pallas``)."""
+    ``g``, alone (``_wgrad_pallas``; the backward's dw)."""
     if x.device.type == "cpu":
         return depthwise_conv7x7_wgrad_reference(x, g)
     B, H, W, C = x.shape
@@ -154,40 +142,13 @@ def depthwise_conv7x7_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def depthwise_conv7x7_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor):
     """``(dx, dw)`` of the conv at ``x`` for the output gradient ``g``:
     ``dx`` like ``x``, ``dw`` ``(7, 7, C)`` f32 (not yet rounded to ``w``'s
-    dtype). Where :func:`bwd_is_split`, the forward conv of ``g`` with the
-    flipped filter and :func:`depthwise_conv7x7_wgrad`; elsewhere the fused
-    backward, whose launches alone this wrapper counts."""
-    B, H, W, C = x.shape
-    if bwd_is_split(H, W, C):
-        _check_g("depthwise_conv7x7_bwd", x, g)
-        dx = _dwconv_forward(g, w.to(x.dtype).flip(0, 1).contiguous())
-        return dx, depthwise_conv7x7_wgrad(x, g)
-    return fused_bwd(x, g, w)
-
-
-def fused_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor):
-    """The fused backward at any shape (:func:`depthwise_conv7x7_bwd` routes
-    the large maps elsewhere); counts on ``depthwise_conv7x7_bwd``."""
-    if x.device.type == "cpu":
-        return depthwise_conv7x7_bwd_reference(x, g, w)
-    _build = _check("depthwise_conv7x7_bwd", x, w)
+    dtype). ``dx`` is the forward conv of ``g`` with the flipped filter and
+    ``dw`` :func:`depthwise_conv7x7_wgrad`; each kernel counts its own
+    launches, and this wrapper counts the backwards it ran on the card."""
     _check_g("depthwise_conv7x7_bwd", x, g)
-    w = w.to(x.dtype).contiguous()
-    _build.require_cuda("depthwise_conv7x7_bwd", x, g, w)
-    B, H, W, C = x.shape
-    dx = torch.empty_like(x)
-    dw = torch.zeros((K, K, C), dtype=torch.float32, device=x.device)
-    if x.numel():
-        lib = _build.library()
-        groups = lib.ic_dwconv7x7_bwd_groups(B, H, W, C)
-        partial = torch.empty((groups, K * K, C), dtype=torch.float32,
-                              device=x.device)
-        with torch.cuda.device(x.device):
-            code = lib.ic_dwconv7x7_bwd(
-                x.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                partial.data_ptr(), dw.data_ptr(), groups, B, H, W, C,
-                _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
-        _build.check(code, "depthwise_conv7x7_bwd")
+    dx = _dwconv_forward(g, w.to(x.dtype).flip(0, 1).contiguous())
+    dw = depthwise_conv7x7_wgrad(x, g)
+    if x.device.type == "cuda":
         depthwise_conv7x7_bwd.launches += 1
     return dx, dw
 

@@ -6,9 +6,10 @@ Times (``utils/profiler.py:device_ms``: 20 calls queued behind a spin
 kernel, between CUDA events) the forward wrapper ``depthwise_conv7x7`` at
 every stage of ConvNeXt-B and ConvNeXt-L at 260 px and batches 16 (a train
 microbatch), 32, 64 (an eval batch), 128 and 256 (a predict batch: 64 images
-x 4 TTA views), and at ConvNeXt-L's stage-0 microbatch the wgrad-only
-wrapper, the split backward and the fused backward; cuDNN's call beside
-each, on the same bf16 inputs. The wrappers timed are those of whichever
+x 4 TTA views), and the backward at every stage of both models at the
+train microbatch of 16 (``time_backward``: the split route, the wgrad-only
+kernel alone and, in a checkout that still has it, the fused kernel);
+cuDNN's call beside each, on the same bf16 inputs. The wrappers timed are those of whichever
 ``image_classification_tpu_torch`` Python imports, so the script also times
 an earlier checkout: ``PYTHONPATH=<checkout> python <this file>``; the timer
 is always this checkout's.
@@ -43,7 +44,7 @@ MAPS = (65, 33, 17, 9)                       # stages 0-3 at 260 px
 MODELS = {"convnext_base": (128, 256, 512, 1024),
           "convnext_large": (192, 384, 768, 1536)}
 BATCHES = (16, 32, 64, 128, 256)
-WGRAD_SHAPE = (16, 65, 65, 192)              # ConvNeXt-L stage 0, microbatch 16
+TRAIN_BATCH = 16                             # the train microbatch
 
 VARIANT_SRC = r"""
 #include "dwconv7x7_fwd_wgrad.cu"
@@ -125,12 +126,13 @@ def cudnn_forward(x, w):
     return lambda: torch.nn.functional.conv2d(xc, wc, padding=3, groups=x.shape[-1])
 
 
-def cudnn_wgrad(x, g, w):
+def cudnn_bwd(x, g, w, with_dx: bool):
+    """cuDNN's backward on channels-last views: dw, and dx too if asked."""
     xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
     wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
     return lambda: torch.ops.aten.convolution_backward(
         gc, xc, wc, None, [1, 1], [3, 3], [1, 1], False, [0, 0], x.shape[-1],
-        [False, True, False])
+        [with_dx, True, False])
 
 
 def time_forward(lib, gen) -> list[dict]:
@@ -169,20 +171,54 @@ def time_forward(lib, gen) -> list[dict]:
     return rows
 
 
-def time_wgrad(gen) -> dict:
+def bf16_ulps(a, b) -> int:
+    """Largest distance between two bf16 tensors in units in the last place."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def time_backward(gen) -> list[dict]:
+    """The depthwise backward (dx and dw) at every stage of both models at
+    the train microbatch: the split route (the forward stencil on g with the
+    flipped filter, then the wgrad-only kernel), the wrapper
+    ``depthwise_conv7x7_bwd`` as the checkout routes it, the fused kernel
+    where the checkout still has one (``fused_bwd``; then also how far the
+    split route's dx and dw lie from its), the wgrad alone, and cuDNN's
+    ``aten.convolution_backward`` for both gradients and for dw alone."""
     from image_classification_tpu_torch.ops import dwconv
 
-    x, g = (torch.randn(*WGRAD_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
-    w = (torch.randn(7, 7, WGRAD_SHAPE[-1], generator=gen, device="cuda")
-         * 0.15).to(torch.bfloat16)
-    row = {"what": "wgrad", "shape": list(WGRAD_SHAPE),
-           "wrapper_ms": device_ms(lambda: dwconv.depthwise_conv7x7_wgrad(x, g)),
-           "cudnn_ms": device_ms(cudnn_wgrad(x, g, w)),
-           "split_route_ms": device_ms(lambda: dwconv.depthwise_conv7x7_bwd(x, g, w)),
-           "fused_bwd_ms": device_ms(lambda: dwconv.fused_bwd(x, g, w))}
-    print(json.dumps(row), flush=True)
-    return row
+    fused = getattr(dwconv, "fused_bwd", None)
+    rows = []
+    for model, dims in MODELS.items():
+        for hw, c in zip(MAPS, dims):
+            shape = (TRAIN_BATCH, hw, hw, c)
+            x, g = (torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            w = (torch.randn(7, 7, c, generator=gen, device="cuda")
+                 * 0.15).to(torch.bfloat16)
+            wf = w.flip(0, 1).contiguous()
+
+            def split():
+                return (dwconv._dwconv_forward(g, wf),
+                        dwconv.depthwise_conv7x7_wgrad(x, g))
+            row = {"what": "backward", "model": model, "shape": list(shape),
+                   "split_route_ms": device_ms(split),
+                   "wrapper_ms": device_ms(lambda: dwconv.depthwise_conv7x7_bwd(x, g, w)),
+                   "wgrad_ms": device_ms(lambda: dwconv.depthwise_conv7x7_wgrad(x, g)),
+                   "cudnn_ms": device_ms(cudnn_bwd(x, g, w, True)),
+                   "cudnn_wgrad_ms": device_ms(cudnn_bwd(x, g, w, False))}
+            if fused is not None:
+                row["fused_bwd_ms"] = device_ms(lambda: fused(x, g, w))
+                (sdx, sdw), (fdx, fdw) = split(), fused(x, g, w)
+                row["split_vs_fused_dx_ulps"] = bf16_ulps(sdx, fdx)
+                row["split_vs_fused_dw_max_rel"] = (
+                    (sdw - fdw).abs().max() / fdw.abs().max()).item()
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del x, g
+    return rows
 
 
 def main() -> int:
@@ -202,7 +238,7 @@ def main() -> int:
           f"{name}; device time a call, mean of {ITERS}", flush=True)
     lib = variant_library() if args.variants else None
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = time_forward(lib, gen) + [time_wgrad(gen)]
+    rows = time_forward(lib, gen) + time_backward(gen)
     if args.out:
         with open(args.out, "w") as f:
             for row in rows:

@@ -160,33 +160,26 @@ def test_dwconv_wgrad_matches_jax_wgrad_pallas(dtype, shape):
            "f32 products")
 
 
-@pytest.mark.parametrize("hwc,split", [
-    ((65, 65, 128), False),    # ConvNeXt-B stage 0 at 260 px: 16,395,776 B
-    ((66, 66, 128), True),     # ConvNeXt-B stage 0 at 264 px: 16,883,712 B
-    ((65, 65, 192), True),     # ConvNeXt-L stage 0 at 260 px: 24,593,664 B
-    ((33, 33, 384), False),    # ConvNeXt-L stage 1 at 260 px: 13,699,584 B
+@pytest.mark.parametrize("hwc", [
+    (65, 65, 128),    # ConvNeXt-B stage 0 at 260 px: the JAX package fuses
+    (66, 66, 128),    # ConvNeXt-B stage 0 at 264 px: it splits
+    (65, 65, 192),    # ConvNeXt-L stage 0 at 260 px: it splits
+    (33, 33, 384),    # ConvNeXt-L stage 1 at 260 px: it fuses
 ])
-def test_dwconv_bwd_routes_like_jax(hwc, split, monkeypatch):
-    """Where ``_bwd_pallas`` splits, the port runs the forward on g with the
-    flipped filter and the wgrad-only kernel; elsewhere the fused one."""
-    assert (jax_dwconv_mod._bwd_bytes_per_image(*hwc) > jax_dwconv_mod._VMEM_BUDGET) == split
-    assert dwconv_mod._bwd_bytes_per_image(*hwc) == jax_dwconv_mod._bwd_bytes_per_image(*hwc)
-    assert dwconv_mod.bwd_is_split(*hwc) == split
+def test_dwconv_bwd_takes_the_split_route(hwc, monkeypatch):
+    """At every shape, where ``_bwd_pallas`` fuses and where it splits, the
+    port runs the forward on g with the flipped filter and the wgrad-only
+    kernel."""
     calls = []
-    monkeypatch.setattr(dwconv_mod, "fused_bwd", lambda *a: calls.append("fused") or (0, 0))
     monkeypatch.setattr(dwconv_mod, "_dwconv_forward", lambda *a: calls.append("forward"))
     monkeypatch.setattr(dwconv_mod, "depthwise_conv7x7_wgrad", lambda *a: calls.append("wgrad"))
     x = torch.empty(1, *hwc)
     dwconv_mod.depthwise_conv7x7_bwd(x, torch.empty_like(x), torch.empty(7, 7, hwc[2]))
-    assert calls == (["forward", "wgrad"] if split else ["fused"])
+    assert calls == ["forward", "wgrad"]
 
 
-def test_dwconv_bwd_split_route_matches_jax_bwd_pallas():
-    """At 1x17x17x1536 (10,972 * 1536 = 16,852,992 B: split) the port's
-    backward against ``_bwd_pallas`` (interpret mode), in f32."""
-    rng = np.random.default_rng(29)
-    shape = (1, 17, 17, 1536)
-    assert dwconv_mod.bwd_is_split(*shape[1:])
+def _split_route_against_bwd_pallas(shape, seed):
+    rng = np.random.default_rng(seed)
     x, g = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
     w = (rng.normal(size=(7, 7, shape[-1])) * 0.2).astype(np.float32)
     rdx, rdw = (_np(v) for v in jax_dwconv_mod._bwd_pallas(
@@ -194,6 +187,23 @@ def test_dwconv_bwd_split_route_matches_jax_bwd_pallas():
     dx, dw = depthwise_conv7x7_bwd(_t(x), _t(g), _t(w))
     _close(dx, rdx, 1e-5, "dx")
     _close(dw, rdw, 1e-5, "dw")
+
+
+def test_dwconv_bwd_split_route_matches_jax_bwd_pallas():
+    """At 1x17x17x1536 (10,972 * 1536 = 16,852,992 B: ``_bwd_pallas``
+    splits too) the port's backward against ``_bwd_pallas`` (interpret
+    mode), in f32."""
+    shape = (1, 17, 17, 1536)
+    assert jax_dwconv_mod._bwd_bytes_per_image(*shape[1:]) > jax_dwconv_mod._VMEM_BUDGET
+    _split_route_against_bwd_pallas(shape, seed=29)
+
+
+def test_dwconv_bwd_split_route_matches_jax_fused_bwd_pallas():
+    """At 1x9x9x40, where ``_bwd_pallas`` runs its fused kernel, the port's
+    split route against it (interpret mode), in f32."""
+    shape = (1, 9, 9, 40)
+    assert jax_dwconv_mod._bwd_bytes_per_image(*shape[1:]) <= jax_dwconv_mod._VMEM_BUDGET
+    _split_route_against_bwd_pallas(shape, seed=31)
 
 
 def test_dwconv_bwd_matches_autograd_of_plain_forward():
