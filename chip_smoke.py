@@ -26,9 +26,9 @@ versions in f32:
   the f32 host step.
 
 Every depthwise backward runs as the forward stencil on g with the flipped
-filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 backward
-runs on its own GEMM core (wgmma fed by TMA), which is also held alone,
-product by product, against ``torch.matmul``.
+filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 forward
+and backward run on one GEMM core (wgmma fed by TMA), which is also held
+alone, product by product, against ``torch.matmul``.
 
     python3 chip_smoke.py
 
@@ -219,6 +219,10 @@ EDGE_SHAPES = ((2, 15, 20, 128), (2, 3, 5, 40), (2, 1, 1, 40), WGRAD_SMALL,
 # Block tail backward beyond the main path: one row, a ragged tile of 127
 # rows, and C = 40 and 96, which are not multiples of the 64-column boxes.
 BLOCK_BWD_EDGES = ((1, 40), (1, 128), (127, 96), (127, 512), (300, 40), (300, 96))
+# Block tail forward beyond the main path, the same kinds of edge, and
+# ConvNeXt-B's stage-2 rows (a ragged last tile) at C = 192 (N and K not
+# multiples of the 128 x 64 tile).
+BLOCK_FWD_EDGES = ((1, 40), (1, 96), (127, 40), (127, 96), (300, 512), (4624, 192))
 # The GEMM core alone, each of the backward's four products against
 # torch.matmul in f32 on the same bf16 operands: every product of two bf16
 # values is exact in f32, so the two differ by the f32 rounding of sums in
@@ -233,7 +237,9 @@ GEMM_REL_TOL = 1e-4
 # image_classification_tpu_torch/tools/time_dwconv.py on a checkout of those
 # designs); the fused depthwise backward, which the split route replaced (two
 # runs of the same script on the checkout that still had it); the block
-# tail's WMMA backward (two runs of tools/time_block_mlp.py on that checkout).
+# tail's WMMA backward and WMMA forward (two runs of tools/time_block_mlp.py
+# on those checkouts; "block_mlp" at the predict shapes is the inference
+# forward, at the train shapes the training forward).
 EARLIER_MS = {
     ("dwconv", (256, 65, 65, 128)): 1.3439, ("dwconv", (256, 33, 33, 256)): 0.7947,
     ("dwconv", (256, 17, 17, 512)): 0.5380, ("dwconv", (256, 9, 9, 1024)): 0.4266,
@@ -247,6 +253,10 @@ EARLIER_MS = {
     ("block_mlp_bwd", (67600, 128)): 1.1839, ("block_mlp_bwd", (17424, 256)): 0.8398,
     ("block_mlp_bwd", (4624, 512)): 0.8718, ("block_mlp_bwd", (67600, 192)): 1.9540,
     ("block_mlp_bwd", (17424, 384)): 1.5631,
+    ("block_mlp", (1081600, 128)): 7.6934, ("block_mlp", (278784, 256)): 4.7653,
+    ("block_mlp", (73984, 512)): 3.4900, ("block_mlp", (67600, 128)): 0.9031,
+    ("block_mlp", (17424, 256)): 0.5944, ("block_mlp", (4624, 512)): 0.4152,
+    ("block_mlp", (67600, 192)): 1.4258, ("block_mlp", (17424, 384)): 0.9100,
 }
 # A synthetic 44-class set with a long tail (class k has 1 + a share
 # proportional to 0.9^k of the rest; the last classes have 1 sample, as the
@@ -557,6 +567,28 @@ def check_block_bwd_edges(gen) -> None:
                 f"block tail bwd {(m, c)} differs between two runs")
 
 
+def check_block_fwd_edges(gen) -> None:
+    """The bf16 block tail forward at BLOCK_FWD_EDGES against its plain
+    version (BLOCK_REL_TOL of each output's largest element), inference
+    (``save=False``) and training (``y``, ``a``, ``u``), each twice for the
+    same bits."""
+    for m, c in BLOCK_FWD_EDGES:
+        args = block_tail_inputs(gen, m, c, torch.bfloat16)
+        ref = block_mlp_fwd_reference(*args)
+        y = block_mlp_fwd(*args, 1e-6, save=False)[0]
+        saved = block_mlp_fwd(*args, 1e-6, save=True)
+        rels = [max_rel(y, ref[0])] + [max_rel(o, r) for o, r in zip(saved, ref)]
+        print(f"block tail fwd {(m, c)}: max rel err of y (inference), y, a, u "
+              f"(training) {[f'{r:.2e}' for r in rels]}", flush=True)
+        require(max(rels) <= BLOCK_REL_TOL, f"block tail fwd {(m, c)}: rel errs {rels}")
+        require(torch.equal(y, block_mlp_fwd(*args, 1e-6, save=False)[0])
+                and all(torch.equal(p, q) for p, q in
+                        zip(saved, block_mlp_fwd(*args, 1e-6, save=True))),
+                f"block tail fwd {(m, c)} differs between two runs")
+        require(torch.equal(y, saved[0]),
+                f"block tail fwd {(m, c)}: y differs between the two variants")
+
+
 def check_kernels() -> list[dict]:
     """Phase 2: each kernel against its plain version on the card in bf16,
     timed, at the shapes of both models, and at small shapes in f32.
@@ -570,6 +602,7 @@ def check_kernels() -> list[dict]:
     check_f32_paths(gen)
     check_edge_shapes(gen)
     check_block_bwd_edges(gen)
+    check_block_fwd_edges(gen)
     for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, DIMS, DEPTHS)):
         print(f"{MODEL} stage {stage}:", flush=True)
         check_stage(KernelTable(), gen, stage, hw, c, VIEWS_BATCH, depth)
@@ -588,7 +621,10 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
     and added to ``table`` as ``per`` launches each. The depthwise backward's
     dx adds ``per`` launches of the forward kernel, counted at the forward's
     shape (the table that is kept has fwd_batch = MICRO); its row holds the
-    whole route (dx and dw), and the wgrad kernel has its own row too."""
+    whole route (dx and dw), and the wgrad kernel has its own row too. The
+    block tail's forward row holds the training forward at MICRO (what a
+    train step launches) and, where fwd_batch is the predict batch, the
+    inference forward there too."""
     x = randn(gen, fwd_batch, hw, hw, c)
     w = randn(gen, 7, 7, c, scale=0.15)
     y, ref = depthwise_conv7x7(x, w), depthwise_conv7x7_reference(x, w)
@@ -611,9 +647,10 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
         require(max_rel(y, ref) <= BLOCK_REL_TOL,
                 f"block tail stage {stage} {(m, c)}: rel err {max_rel(y, ref)}")
         ms, _ = kernel_and_library_ms(f"block tail {(m, c)}", lambda: block_mlp(*args))
-        table.add("block_mlp", (m, c), per, err, ms,
-                  time_ms(lambda: block_mlp_reference(*args), 2), None,
-                  6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
+        if fwd_batch != MICRO:   # at the microbatch the training forward is kept
+            table.add("block_mlp", (m, c), per, err, ms,
+                      time_ms(lambda: block_mlp_reference(*args), 2), None,
+                      6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
         del args, y, ref
     else:
         x = randn(gen, fwd_batch * hw * hw, 4 * c, scale=3.0)
@@ -660,9 +697,20 @@ def check_stage(table: KernelTable, gen, stage: int, hw: int, c: int,
         m = MICRO * hw * hw
         args = block_tail_inputs(gen, m, c, torch.bfloat16)
         y, a, u = block_mlp_fwd(*args, 1e-6, save=True)
-        for name, ours, ref in zip("yau", (y, a, u), block_mlp_fwd_reference(*args)):
+        fwd_ref = block_mlp_fwd_reference(*args)
+        for name, ours, ref in zip("yau", (y, a, u), fwd_ref):
             require(max_rel(ours, ref) <= BLOCK_REL_TOL,
                     f"block tail training forward stage {stage} {(m, c)}: {name}")
+        again = block_mlp_fwd(*args, 1e-6, save=True)
+        require(all(torch.equal(p, q) for p, q in zip((y, a, u), again)),
+                "block tail training forward differs between two runs")
+        ms, _ = kernel_and_library_ms(f"block tail training forward {(m, c)}",
+                                      lambda: block_mlp_fwd(*args, 1e-6, save=True))
+        table.add("block_mlp", (m, c), per,
+                  (y.float() - fwd_ref[0].float()).abs().max().item(), ms,
+                  time_ms(lambda: block_mlp_fwd_reference(*args), 2), None,
+                  16 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
+        del fwd_ref, again
         dy = randn(gen, m, c)
         bwd_args = (args[0], a, u, *args[2:], dy)
         ours, ref = block_mlp_bwd(*bwd_args), block_mlp_bwd_reference(*bwd_args)

@@ -9,61 +9,61 @@
 // and, for f32 tensors, _block_mlp_bwd (body _bwd_kernel, the fused
 // backward).
 //
-// What bounds it on the H100: the matrix products. The forward runs two of
-// 2 * M * C * 4C FLOP, the backward four (dh, dxhat, dW1, dW2), 32 * M * C^2
-// FLOP in all. At the train step's shapes (M = 16 * 65^2 rows at C = 128,
-// then C = 256, 512) the backward moves ~16 * M * C bytes at bf16, so above
-// C ~ 64 the tensor cores, not memory, set the pace.
+// What bounds the bf16 forward on the H100: two matrix products of
+// 2 * M * C * 4C FLOP, 16 * M * C^2 in all, against 6 * M * C + 16 * C^2
+// bytes of bf16 inputs and outputs (x, res, y, the weights), 10 * M * C more
+// for training (a, u). By those the tensor cores set the pace at every C.
+// The TPU kernel keeps a (TM, 4C) tile of h in 100 MB of VMEM; 227 KB of
+// shared memory cannot, so here h makes a round trip through device memory,
+// and this design moves 26 * M * C bytes (36 * M * C training): at C = 128
+// those, not the products, set its floor.
 //
-// What the design does about it. The TPU kernels keep a (TM, 4C) tile in
-// 100 MB of VMEM; 227 KB of shared memory cannot, so each direction is split
-// into launches on one stream around one tiled GEMM kernel:
-//   forward
-//   (a) ln_rows: one warp per row, f32 mean and E[x^2] - mean^2 variance
-//       (the TPU kernel's _norm_stats), xhat = z * s + t in the working dtype
-//       (C <= 512: a lane keeps its 16 columns of the row in registers);
-//   (b) h = GELU_erf(xhat @ W1^T + b1), epilogue: bias, the A&S-erf GELU in
-//       f32, then h rounded; for training it also stores a = xhat @ W1^T + b1
-//       rounded. fc2 does not apply GELU to a as it loads it, because the
-//       forward's h is GELU of the unrounded a, and GELU of the rounded a
-//       differs from it by an ulp of bf16 in places: storing a from the fc1
-//       epilogue keeps the output equal to the Pallas kernel's;
-//   (c) y = res + g * (h @ W2^T + b2), epilogue: residual; for training it
-//       also stores u = h @ W2^T + b2 rounded (y itself uses u unrounded).
+// What the design does about it. Three launches on one stream:
+//   (a) ln_fwd rows (packed_rows.cuh, the row layout of the backward's
+//       prep): f32 mean and E[x^2] - mean^2 variance (the TPU kernel's
+//       _norm_stats), xhat = z * s + t rounded to bf16, 16-byte loads and
+//       stores;
+//   (b) fc1 = xhat @ W1^T on the GEMM core of wgmma_gemm.cuh (TMA, wgmma,
+//       both operands K-major: W1 stays in nn.Linear's (out, in) layout);
+//       epilogue from the staged f32 tile: v = acc + b1, h = GELU_erf(v)
+//       rounded, and for training a = v rounded. fc2 does not apply GELU to
+//       a as it loads it, because h is GELU of the unrounded a, and GELU of
+//       the rounded a differs from it by an ulp of bf16 in places: storing h
+//       from the fc1 epilogue keeps the output equal to the Pallas kernel's;
+//   (c) fc2 = h @ W2^T on the same core; epilogue: u = acc + b2 in f32,
+//       y = res + g * u rounded, and for training u rounded (y itself uses
+//       u unrounded). A thread loads its rows of res before it reads the
+//       tile, so they are in flight together.
+// Every epilogue stores 8 columns a thread with 16-byte stores. K <= 2048
+// and one 128 x 128 tile a block leave enough blocks without split-K.
+//
+// The f32 path (forward and backward) is a plain FMA tiling that reads each
+// operand K-major or row-major, with scalar epilogues, kept for exact checks
+// against the f32 plain version:
 //   f32 backward (the order of _bwd_kernel)
-//   (d) bwd_prep rows: xhat recomputed from x and stored rounded (dW1's
-//       operand); du = dy * g stored rounded; f32 column partials of du (db2)
-//       and of dy * u_saved (dg);
-//   (e) dh = du @ W2, epilogue: da = dh * gelu'(a_saved) stored rounded, and
-//       its f32 column partials (db1);
+//   (d) bwd_prep rows: xhat recomputed from x and stored (dW1's operand);
+//       du = dy * g stored; column partials of du (db2) and of dy * u_saved
+//       (dg);
+//   (e) dh = du @ W2, epilogue: da = dh * gelu'(a_saved) stored, and its
+//       column partials (db1);
 //   (f) dxhat = da @ W1, stored in f32;
 //   (g) ln_bwd rows: dz = dxhat * s, dx = r * (dz - mean(dz) - z * mean(dz z))
 //       with the statistics recomputed from x; f32 column partials of
 //       dxhat * z (ds) and dxhat (dt);
 //   (h) dW1 = da^T @ xhat and dW2 = du^T @ GELU(a_saved), the GEMM with K = M
-//       split over M into f32 partials (the GELU of a, rounded, is applied as
-//       the tile is loaded, so h is never stored);
+//       split over M into partials (the GELU of a is applied as the tile is
+//       loaded, so h is never stored);
 //   (i) every partial summed by a second pass in a fixed order.
 // Blocks run in no order on Hopper, so the TPU's grid-carried f32 sums
 // become per-block partials plus that pass: no float atomics, so two runs
 // give the same bits. Rows past M load as zeros and add nothing to any sum.
-//
-// The forward's bf16 GEMM runs on the tensor cores through WMMA (16x16x16
-// bf16 fragments, f32 accumulation), with 128x128x32 block tiles staged
-// through shared memory by 16-byte loads, the next k-tile prefetched into
-// registers while the current one is multiplied; both operands are K-major,
-// so the weights stay in nn.Linear's (out, in) layout. The f32 path is a
-// plain FMA tiling that reads each operand K-major or row-major, kept for
-// exact checks against the f32 plain version.
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "packed_rows.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 enum Epilogue : int {
   EPI_BIAS_GELU = 0,            // out = gelu(acc + bias); aux = acc + bias
@@ -77,14 +77,14 @@ struct Epi {
   const void* bias;   // (N,)
   const void* res;    // (M, N): the residual, or the saved pre-GELU a
   const void* gamma;  // (N,)
-  void* out;          // (M, N) in the storage type; f32 (splits, M, N) for EPI_F32
+  void* out;          // (M, N); (splits, M, N) for EPI_F32
   void* aux;          // (M, N) or null: the pre-activation training saves
   float* colsum;      // (gridDim.y, N): column partials of EPI_DGELU
 };
 
 // Finishes output element (m, n) from its f32 product; returns the f32 value
 // whose columns EPI_DGELU sums.
-template <int EPI, typename T>
+template <int EPI>
 __device__ __forceinline__ float store_epilogue(float acc, int64_t m, int n,
                                                 int64_t M, int N,
                                                 const Epi& e) {
@@ -93,20 +93,20 @@ __device__ __forceinline__ float store_epilogue(float acc, int64_t m, int n,
     static_cast<float*>(e.out)[(int64_t)blockIdx.z * M * N + idx] = acc;
     return acc;
   } else if constexpr (EPI == EPI_DGELU) {
-    const float a = ic_to_f32<T>(static_cast<const T*>(e.res)[idx]);
+    const float a = static_cast<const float*>(e.res)[idx];
     const float v = acc * ic_gelu_grad_as(a);
-    static_cast<T*>(e.out)[idx] = ic_from_f32<T>(v);
+    static_cast<float*>(e.out)[idx] = v;
     return v;
   } else {
-    const float v = acc + ic_to_f32<T>(static_cast<const T*>(e.bias)[n]);
-    if (e.aux != nullptr) static_cast<T*>(e.aux)[idx] = ic_from_f32<T>(v);
-    T* out = static_cast<T*>(e.out);
+    const float v = acc + static_cast<const float*>(e.bias)[n];
+    if (e.aux != nullptr) static_cast<float*>(e.aux)[idx] = v;
+    float* out = static_cast<float*>(e.out);
     if constexpr (EPI == EPI_BIAS_GELU) {
-      out[idx] = ic_from_f32<T>(ic_gelu_erf_as(v));
+      out[idx] = ic_gelu_erf_as(v);
     } else {
-      const float r = ic_to_f32<T>(static_cast<const T*>(e.res)[idx]);
-      const float g = ic_to_f32<T>(static_cast<const T*>(e.gamma)[n]);
-      out[idx] = ic_from_f32<T>(r + g * v);
+      const float r = static_cast<const float*>(e.res)[idx];
+      const float g = static_cast<const float*>(e.gamma)[n];
+      out[idx] = r + g * v;
     }
     return v;
   }
@@ -114,9 +114,8 @@ __device__ __forceinline__ float store_epilogue(float acc, int64_t m, int n,
 
 // ------------------------------------------------------------- row kernels
 constexpr int LN_THREADS = 256;
-constexpr int ROW_WARPS = LN_THREADS / 32;
+constexpr int LN_WARPS = LN_THREADS / 32;
 constexpr int ROWS_PER_BLOCK = 64;   // backward row kernels: rows a block sums
-constexpr int MAX_C = 512;           // ops/block_mlp.py MAX_FUSED_C
 constexpr int MAX_Q = MAX_C / 32;    // columns a lane holds
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -128,15 +127,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Loads a row of x into xv (the lane's columns lane + 32 q), replaces it by
 // z = (x - mean) * r and returns r = rsqrt(var + eps): f32 mean and
 // E[x^2] - mean^2 variance (the TPU kernel's _norm_stats).
-template <typename T>
-__device__ __forceinline__ float row_z(const T* __restrict__ xr, int C,
-                                       float eps, float (&xv)[MAX_Q]) {
+__device__ __forceinline__ float lane_row_z(const float* __restrict__ xr, int C,
+                                            float eps, float (&xv)[MAX_Q]) {
   const int lane = threadIdx.x % 32;
   float sum = 0.0f, sq = 0.0f;
 #pragma unroll
   for (int q = 0; q < MAX_Q; ++q) {
     const int c = lane + 32 * q;
-    xv[q] = c < C ? ic_to_f32<T>(xr[c]) : 0.0f;
+    xv[q] = c < C ? xr[c] : 0.0f;
     sum += xv[q];
     sq += xv[q] * xv[q];
   }
@@ -149,30 +147,27 @@ __device__ __forceinline__ float row_z(const T* __restrict__ xr, int C,
   return r;
 }
 
-// (a): one warp a row, xhat = z * s + t in the storage type.
-template <typename T>
+// The f32 forward's LayerNorm: one warp a row, xhat = z * s + t.
 __global__ void __launch_bounds__(LN_THREADS)
-ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ s,
-               const T* __restrict__ t, T* __restrict__ out, int64_t M, int C,
-               float eps) {
-  const int64_t row = (int64_t)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ s,
+               const float* __restrict__ t, float* __restrict__ out, int64_t M,
+               int C, float eps) {
+  const int64_t row = (int64_t)blockIdx.x * LN_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;   // whole warps: row is the same on every lane
   float z[MAX_Q];
-  row_z<T>(x + row * C, C, eps, z);
+  lane_row_z(x + row * C, C, eps, z);
 #pragma unroll
   for (int q = 0; q < MAX_Q; ++q) {
     const int c = lane + 32 * q;
-    if (c < C)
-      out[row * C + c] =
-          ic_from_f32<T>(z[q] * ic_to_f32<T>(s[c]) + ic_to_f32<T>(t[c]));
+    if (c < C) out[row * C + c] = z[q] * s[c] + t[c];
   }
 }
 
 // Sums two per-lane column accumulators over the block's warps, in warp
 // order, into row blockIdx.x of the (gridDim.x, C) partials p0 and p1.
 __device__ __forceinline__ void block_column_partials(
-    float (&red)[2][ROW_WARPS][MAX_C], const float (&a0)[MAX_Q],
+    float (&red)[2][LN_WARPS][MAX_C], const float (&a0)[MAX_Q],
     const float (&a1)[MAX_Q], int C, float* __restrict__ p0,
     float* __restrict__ p1) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -187,7 +182,7 @@ __device__ __forceinline__ void block_column_partials(
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += LN_THREADS) {
     float s0 = 0.0f, s1 = 0.0f;
-    for (int w = 0; w < ROW_WARPS; ++w) {
+    for (int w = 0; w < LN_WARPS; ++w) {
       s0 += red[0][w][c];
       s1 += red[1][w][c];
     }
@@ -196,36 +191,35 @@ __device__ __forceinline__ void block_column_partials(
   }
 }
 
-// (d): xhat = bf(z s + t), du = bf(dy g); partials of du (db2), dy u (dg).
-template <typename T>
+// (d): xhat = z s + t, du = dy g; partials of du (db2), dy u (dg).
 __global__ void __launch_bounds__(LN_THREADS)
-bwd_prep_kernel(const T* __restrict__ x, const T* __restrict__ u,
-                const T* __restrict__ dy, const T* __restrict__ s,
-                const T* __restrict__ t, const T* __restrict__ g,
-                T* __restrict__ xhat, T* __restrict__ du,
+bwd_prep_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                const float* __restrict__ dy, const float* __restrict__ s,
+                const float* __restrict__ t, const float* __restrict__ g,
+                float* __restrict__ xhat, float* __restrict__ du,
                 float* __restrict__ part_db2, float* __restrict__ part_dg,
                 int64_t M, int C, float eps) {
-  __shared__ float red[2][ROW_WARPS][MAX_C];
+  __shared__ float red[2][LN_WARPS][MAX_C];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float a_db2[MAX_Q], a_dg[MAX_Q];
 #pragma unroll
   for (int q = 0; q < MAX_Q; ++q) a_db2[q] = a_dg[q] = 0.0f;
-  for (int rr = warp; rr < ROWS_PER_BLOCK; rr += ROW_WARPS) {
+  for (int rr = warp; rr < ROWS_PER_BLOCK; rr += LN_WARPS) {
     const int64_t m = (int64_t)blockIdx.x * ROWS_PER_BLOCK + rr;
     if (m >= M) break;
     float z[MAX_Q];
-    row_z<T>(x + m * C, C, eps, z);
+    lane_row_z(x + m * C, C, eps, z);
 #pragma unroll
     for (int q = 0; q < MAX_Q; ++q) {
       const int c = lane + 32 * q;
       if (c < C) {
         const int64_t i = m * C + c;
-        xhat[i] = ic_from_f32<T>(z[q] * ic_to_f32<T>(s[c]) + ic_to_f32<T>(t[c]));
-        const float dyv = ic_to_f32<T>(dy[i]);
-        const float duv = dyv * ic_to_f32<T>(g[c]);
-        du[i] = ic_from_f32<T>(duv);
+        xhat[i] = z[q] * s[c] + t[c];
+        const float dyv = dy[i];
+        const float duv = dyv * g[c];
+        du[i] = duv;
         a_db2[q] += duv;
-        a_dg[q] += dyv * ic_to_f32<T>(u[i]);
+        a_dg[q] += dyv * u[i];
       }
     }
   }
@@ -233,22 +227,21 @@ bwd_prep_kernel(const T* __restrict__ x, const T* __restrict__ u,
 }
 
 // (g): the LayerNorm backward; partials of dxhat z (ds) and dxhat (dt).
-template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dxhat,
-              const T* __restrict__ s, T* __restrict__ dx,
+ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dxhat,
+              const float* __restrict__ s, float* __restrict__ dx,
               float* __restrict__ part_ds, float* __restrict__ part_dt,
               int64_t M, int C, float eps) {
-  __shared__ float red[2][ROW_WARPS][MAX_C];
+  __shared__ float red[2][LN_WARPS][MAX_C];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float a_ds[MAX_Q], a_dt[MAX_Q];
 #pragma unroll
   for (int q = 0; q < MAX_Q; ++q) a_ds[q] = a_dt[q] = 0.0f;
-  for (int rr = warp; rr < ROWS_PER_BLOCK; rr += ROW_WARPS) {
+  for (int rr = warp; rr < ROWS_PER_BLOCK; rr += LN_WARPS) {
     const int64_t m = (int64_t)blockIdx.x * ROWS_PER_BLOCK + rr;
     if (m >= M) break;
     float z[MAX_Q], dz[MAX_Q];
-    const float r = row_z<T>(x + m * C, C, eps, z);
+    const float r = lane_row_z(x + m * C, C, eps, z);
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
     for (int q = 0; q < MAX_Q; ++q) {
@@ -256,7 +249,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dxhat,
       float dxh = 0.0f;
       if (c < C) {
         dxh = dxhat[m * C + c];
-        dz[q] = dxh * ic_to_f32<T>(s[c]);
+        dz[q] = dxh * s[c];
       } else {
         dz[q] = 0.0f;
       }
@@ -270,7 +263,7 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dxhat,
 #pragma unroll
     for (int q = 0; q < MAX_Q; ++q) {
       const int c = lane + 32 * q;
-      if (c < C) dx[m * C + c] = ic_from_f32<T>(r * (dz[q] - m1 - z[q] * m2));
+      if (c < C) dx[m * C + c] = r * (dz[q] - m1 - z[q] * m2);
     }
   }
   block_column_partials(red, a_ds, a_dt, C, part_ds, part_dt);
@@ -286,119 +279,203 @@ __global__ void sum_rows_kernel(const float* __restrict__ part, int R,
   out[n] = s;
 }
 
-// --------------------------------------------------------- bf16 WMMA GEMM
-// out[M, N] = epilogue(sum over k of A(m, k) * B(n, k)), the forward's
-// epilogues. A is stored (M, K), B (N, K); K % 8 == 0 (whole 16-byte
-// chunks).
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDK = BK + 8;           // pitch of a K-major tile [128][40]
-constexpr int TILE_ELEMS = BM * LDK;
-constexpr int GEMM_THREADS = 256;     // 8 warps: 4 along M x 2 along N
-constexpr int WM = 32, WN = 64;       // warp tile
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int CHUNKS = BM * BK / 8 / GEMM_THREADS;  // 16-byte loads a thread
-static_assert(BM == BN, "one tile shape serves A and B");
+// ------------------------------------------------------ the bf16 forward
+// (a): xhat = bf(z s + t) in the packed row layout of packed_rows.cuh; a
+// group walks its rows U at a time, their loads in flight together. No sums
+// cross rows, so the grid is as large as the rows need, up to LN_GRID.
+constexpr int LN_GRID = 2048;
 
-__device__ __forceinline__ void load_tile_regs(const bf16* src, int64_t rows,
-                                               int64_t K, int64_t row0,
-                                               int64_t k0, uint4 (&regs)[CHUNKS]) {
+template <int Q, int U>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s,
+              const bf16* __restrict__ t, bf16* __restrict__ xhat, int64_t M,
+              int C, float eps, int lanes) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gpw = 32 / lanes, li = lane % lanes;
+  uint4 sp[Q], tp[Q];
+  load_packed<Q>(s, 0, true, C, lanes, li, sp);
+  load_packed<Q>(t, 0, true, C, lanes, li, tp);
+  const int64_t stride = (int64_t)gridDim.x * ROW_WARPS * gpw;
+  for (int64_t base = ((int64_t)blockIdx.x * ROW_WARPS + warp) * gpw + lane / lanes;
+       base - lane / lanes < M; base += U * stride) {
+    uint4 xr[U][Q];
 #pragma unroll
-  for (int i = 0; i < CHUNKS; ++i) {
-    const int idx = threadIdx.x + i * GEMM_THREADS;
-    const int64_t gr = row0 + idx / (BK / 8);
-    const int64_t gk = k0 + (idx % (BK / 8)) * 8;
-    if (gr < rows && gk < K) {
-      regs[i] = *reinterpret_cast<const uint4*>(src + gr * K + gk);
-    } else {
-      regs[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_tile_smem(bf16* tile,
-                                                const uint4 (&regs)[CHUNKS]) {
-#pragma unroll
-  for (int i = 0; i < CHUNKS; ++i) {
-    const int idx = threadIdx.x + i * GEMM_THREADS;
-    *reinterpret_cast<uint4*>(tile + (idx / (BK / 8)) * LDK + (idx % (BK / 8)) * 8) =
-        regs[i];
-  }
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                      Epi e, int64_t M, int N, int64_t K) {
-  static_assert(EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_SCALE_RESIDUAL,
-                "the bf16 WMMA path runs the forward's epilogues");
-  __shared__ __align__(128) bf16 As[TILE_ELEMS];
-  __shared__ __align__(128) bf16 Bs[TILE_ELEMS];
-  __shared__ __align__(128) float Cs[GEMM_THREADS / 32][16 * 16];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp / (BN / WN);    // 0..3
-  const int wn = warp % (BN / WN);    // 0..1
-  const int64_t m0 = (int64_t)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  uint4 ra[CHUNKS], rb[CHUNKS];
-  load_tile_regs(A, M, K, m0, 0, ra);
-  load_tile_regs(B, N, K, n0, 0, rb);
-  for (int64_t k0 = 0; k0 < K; k0 += BK) {
-    store_tile_smem(As, ra);
-    store_tile_smem(Bs, rb);
-    __syncthreads();
-    if (k0 + BK < K) {  // prefetch the next k-tile while this one multiplies
-      load_tile_regs(A, M, K, m0, k0 + BK, ra);
-      load_tile_regs(B, N, K, n0, k0 + BK, rb);
+    for (int j = 0; j < U; ++j) {
+      const int64_t m = base + j * stride;
+      load_packed<Q>(x, m, m < M, C, lanes, li, xr[j]);
     }
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[FN];
+    for (int j = 0; j < U; ++j) {
+      const int64_t m = base + j * stride;
+      float z[Q][8];
+      unpack_row<Q>(xr[j], z);
+      row_z<Q>(z, C, lanes, eps);
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * WM + i * 16) * LDK + kk, LDK);
+      for (int q = 0; q < Q; ++q) {
+        const int col = 8 * (li + q * lanes);
+        if (m >= M || col >= C) continue;
+        float sv[8], tv[8], xh[8];
+        unpack8(sp[q], sv);
+        unpack8(tp[q], tv);
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + (wn * WN + j * 16) * LDK + kk, LDK);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: each warp stages one 16x16 fragment at a time in its own
-  // scratch, then each lane finishes 8 consecutive columns of one row.
-  float* scratch = Cs[warp];
-  const int r = lane / 2;
-  const int cc = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int64_t m = m0 + wm * WM + i * 16 + r;
-      const int nb = n0 + wn * WN + j * 16 + cc;
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        if (m < M && nb + v < N)
-          store_epilogue<EPI, bf16>(scratch[r * 16 + cc + v], m, nb + v, M, N, e);
+        for (int v = 0; v < 8; ++v) xh[v] = z[q][v] * sv[v] + tv[v];
+        store8(xhat + m * C + col, xh);
       }
-      __syncwarp();
     }
   }
+}
+
+template <int Q, int U>
+cudaError_t launch_ln_fwd(const bf16* x, const bf16* s, const bf16* t, bf16* xhat,
+                          int64_t M, int C, float eps, cudaStream_t st) {
+  const int lanes = row_lanes(C);
+  const int64_t rows = (int64_t)ROW_WARPS * (32 / lanes) * U;
+  const int64_t need = (M + rows - 1) / rows;
+  ln_fwd_kernel<Q, U><<<(unsigned)(need < LN_GRID ? need : LN_GRID), ROW_THREADS, 0,
+                        st>>>(x, s, t, xhat, M, C, eps, lanes);
+  return cudaGetLastError();
+}
+
+// GELU_erf by the formula of ic_gelu_erf_as (common.cuh) on the fast
+// intrinsics, one __fdividef and one __expf, as the backward's dh epilogue
+// takes it: fc1's epilogue evaluates it for 4 * M * C elements, where the
+// precise division and exp would keep the SM's instruction slots busier
+// than its stores keep the memory.
+__device__ __forceinline__ float gelu_fast(float a) {
+  const float x = a * 0.7071067811865476f;
+  const float ax = fabsf(x);
+  const float t = __fdividef(1.0f, 1.0f + 0.3275911f * ax);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  float erf = 1.0f - poly * __expf(-ax * ax);
+  erf = x < 0.0f ? -erf : (x > 0.0f ? erf : 0.0f);
+  return 0.5f * a * (1.0f + erf);
+}
+
+// (b): h = GELU_erf(acc + b1) rounded; a = acc + b1 rounded where a is set.
+struct EpiBiasGelu : GemmShape {
+  const bf16* bias;
+  bf16* h;
+  bf16* a;
+
+  __device__ void operator()(const float (&acc)[64], uint8_t* smem, int64_t m0,
+                             int n0) const {
+    const float* tile = stage_acc(acc, smem);
+    const int cc = threadIdx.x % EPI_COLS, rg = threadIdx.x / EPI_COLS;
+    const int n = n0 + 8 * cc;
+    float b[8];
+    if (n < N) load8(bias + n, b);
+    consumer_sync();
+    if (n >= N) return;
+#pragma unroll
+    for (int i = 0; i < EPI_ROWS_A_THREAD; ++i) {
+      const int r = rg + i * EPI_ROWS;
+      const int64_t m = m0 + r;
+      if (m >= M) break;
+      float v[8], g[8];
+      tile_row8(tile, r, cc, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] += b[k];
+        g[k] = gelu_fast(v[k]);
+      }
+      const int64_t idx = m * N + n;
+      store8(h + idx, g);
+      if (a != nullptr) store8(a + idx, v);
+    }
+  }
+};
+
+// (c): u = acc + b2 in f32, y = res + g * u rounded; u rounded where set.
+struct EpiScaleResidual : GemmShape {
+  const bf16* bias;
+  const bf16* res;
+  const bf16* gamma;
+  bf16* y;
+  bf16* u;
+
+  __device__ void operator()(const float (&acc)[64], uint8_t* smem, int64_t m0,
+                             int n0) const {
+    const float* tile = stage_acc(acc, smem);
+    const int cc = threadIdx.x % EPI_COLS, rg = threadIdx.x / EPI_COLS;
+    const int n = n0 + 8 * cc;
+    float b[8], g[8];
+    uint4 rraw[EPI_ROWS_A_THREAD];
+    if (n < N) {
+      load8(bias + n, b);
+      load8(gamma + n, g);
+    }
+#pragma unroll
+    for (int i = 0; i < EPI_ROWS_A_THREAD; ++i) {
+      const int64_t m = m0 + rg + i * EPI_ROWS;
+      rraw[i] = m < M && n < N ? *reinterpret_cast<const uint4*>(res + m * N + n)
+                               : make_uint4(0u, 0u, 0u, 0u);
+    }
+    consumer_sync();
+    if (n >= N) return;
+#pragma unroll
+    for (int i = 0; i < EPI_ROWS_A_THREAD; ++i) {
+      const int r = rg + i * EPI_ROWS;
+      const int64_t m = m0 + r;
+      if (m >= M) break;
+      float v[8], rv[8], out[8];
+      tile_row8(tile, r, cc, v);
+      unpack8(rraw[i], rv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] += b[k];
+        out[k] = rv[k] + g[k] * v[k];
+      }
+      const int64_t idx = m * N + n;
+      store8(y + idx, out);
+      if (u != nullptr) store8(u + idx, v);
+    }
+  }
+};
+
+// The shapes the bf16 forward takes: whole 16-byte rows of every operand
+// (C and H4 multiples of 8), C within the row layout, the row tiles within
+// the grid.
+bool fwd_bf16_shape_ok(int64_t M, int C, int H4) {
+  return M >= 1 && C >= 8 && C % 8 == 0 && C <= MAX_C && H4 >= 8 && H4 % 8 == 0 &&
+         (M + BM - 1) / BM <= 65535;
+}
+
+// One product of the forward on the GEMM core with its epilogue: fc1
+// (which = 1: out = h, aux = a or null, res and gamma unused) or fc2 (which
+// = 2: out = y, aux = u or null). A (M, K) and W (N, K) bf16, both K-major.
+cudaError_t fc_bf16(int which, const void* A, const void* W, const void* bias,
+                    const void* res, const void* gamma, void* out, void* aux,
+                    int64_t M, int N, int64_t K, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  IC_TRY(make_maps(&ma, &mb, A, W, true, true, M, N, K));
+  const GemmShape shape{M, N, K, ((K + BK - 1) / BK) * BK};
+  const bf16* b = static_cast<const bf16*>(bias);
+  if (which == 1) {
+    const EpiBiasGelu epi{shape, b, static_cast<bf16*>(out), static_cast<bf16*>(aux)};
+    return launch_gemm<EpiBiasGelu, true, true>(ma, mb, epi, 1, st);
+  }
+  const EpiScaleResidual epi{shape, b, static_cast<const bf16*>(res),
+                             static_cast<const bf16*>(gamma), static_cast<bf16*>(out),
+                             static_cast<bf16*>(aux)};
+  return launch_gemm<EpiScaleResidual, true, true>(ma, mb, epi, 1, st);
+}
+
+cudaError_t fwd_bf16(const void* x, const void* res, const void* s, const void* t,
+                     const void* w1, const void* b1, const void* w2,
+                     const void* b2, const void* g, void* xhat, void* h, void* y,
+                     void* a, void* u, int64_t M, int C, int H4, float eps,
+                     cudaStream_t st) {
+  if (!fwd_bf16_shape_ok(M, C, H4)) return cudaErrorInvalidValue;
+  const bf16 *xb = static_cast<const bf16*>(x), *sb = static_cast<const bf16*>(s),
+             *tb = static_cast<const bf16*>(t);
+  bf16* xh = static_cast<bf16*>(xhat);
+  IC_TRY((C <= 256 ? launch_ln_fwd<1, 2>(xb, sb, tb, xh, M, C, eps, st)
+                   : launch_ln_fwd<2, 1>(xb, sb, tb, xh, M, C, eps, st)));
+  IC_TRY(fc_bf16(1, xhat, w1, b1, nullptr, nullptr, h, a, M, H4, C, st));
+  return fc_bf16(2, h, w2, b2, res, g, y, u, M, C, H4, st);
 }
 
 // ----------------------------------------------------------- f32 FMA GEMM
@@ -456,7 +533,7 @@ gemm_f32_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
       if (m < M && n < N)
-        csum[j] += store_epilogue<EPI, float>(acc[i][j], m, n, M, N, e);
+        csum[j] += store_epilogue<EPI>(acc[i][j], m, n, M, N, e);
     }
   }
   if constexpr (EPI == EPI_DGELU) {
@@ -474,32 +551,17 @@ gemm_f32_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // ---------------------------------------------------------------- launches
-int64_t gemm_row_tiles(int dtype, int64_t M) {
-  const int bm = dtype == IC_BF16 ? BM : FBM;
-  return (M + bm - 1) / bm;
-}
+int64_t fma_row_tiles(int64_t M) { return (M + FBM - 1) / FBM; }
 
 template <int EPI, bool A_KMAJOR, bool B_KMAJOR, bool GELU_B>
-cudaError_t launch_gemm(int dtype, const void* A, const void* B, const Epi& e,
-                        int64_t M, int N, int64_t K, int splits,
-                        int64_t kchunk, cudaStream_t st) {
-  if constexpr (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_SCALE_RESIDUAL) {
-    if (dtype == IC_BF16) {  // the forward: K-major operands, no split
-      static_assert(A_KMAJOR && B_KMAJOR && !GELU_B, "the forward's products");
-      const dim3 grid((N + BN - 1) / BN, (unsigned)gemm_row_tiles(dtype, M));
-      gemm_bf16_wmma_kernel<EPI><<<grid, GEMM_THREADS, 0, st>>>(
-          static_cast<const bf16*>(A), static_cast<const bf16*>(B), e, M, N, K);
-      return cudaGetLastError();
-    }
-  }
-  {
-    const dim3 grid((N + FBN - 1) / FBN, (unsigned)gemm_row_tiles(dtype, M),
-                    splits);
-    gemm_f32_fma_kernel<EPI, A_KMAJOR, B_KMAJOR, GELU_B>
-        <<<grid, F_THREADS, 0, st>>>(static_cast<const float*>(A),
-                                     static_cast<const float*>(B), e, M, N, K,
-                                     kchunk);
-  }
+cudaError_t launch_fma_gemm(const void* A, const void* B, const Epi& e, int64_t M,
+                            int N, int64_t K, int splits, int64_t kchunk,
+                            cudaStream_t st) {
+  const dim3 grid((N + FBN - 1) / FBN, (unsigned)fma_row_tiles(M), splits);
+  gemm_f32_fma_kernel<EPI, A_KMAJOR, B_KMAJOR, GELU_B>
+      <<<grid, F_THREADS, 0, st>>>(static_cast<const float*>(A),
+                                   static_cast<const float*>(B), e, M, N, K,
+                                   kchunk);
   return cudaGetLastError();
 }
 
@@ -539,7 +601,7 @@ struct BwdScratch {
 BwdScratch bwd_scratch(int64_t M, int C, int H4) {
   BwdScratch b;
   b.rows_blocks = (int)((M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  b.gemm_rows = (int)gemm_row_tiles(IC_F32, M);
+  b.gemm_rows = (int)fma_row_tiles(M);
   b.s1 = weight_grad_split(H4, C, M);
   b.s2 = weight_grad_split(C, H4, M);
   b.prep = 0;                                          // 2 x (rows_blocks, C)
@@ -551,29 +613,13 @@ BwdScratch bwd_scratch(int64_t M, int C, int H4) {
   return b;
 }
 
-template <typename T>
-cudaError_t launch_ln(const void* x, const void* s, const void* t, void* out,
-                      int64_t M, int C, float eps, cudaStream_t st) {
-  const int64_t blocks = (M + ROW_WARPS - 1) / ROW_WARPS;
-  ln_rows_kernel<T><<<(unsigned)blocks, LN_THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(s),
-      static_cast<const T*>(t), static_cast<T*>(out), M, C, eps);
-  return cudaGetLastError();
-}
-
-
-#define IC_TRY(expr)                        \
-  do {                                      \
-    const cudaError_t err_ = (expr);        \
-    if (err_ != cudaSuccess) return err_;   \
-  } while (0)
-
 }  // namespace
 
 // All tensors contiguous and of one dtype. x, res, xhat, y: (M, C);
 // s, t, b2, g: (C,); w1: (H4, C); b1: (H4,); w2: (C, H4); h: (M, H4).
 // xhat and h are scratch the caller allocates. a (M, H4) and u (M, C) are
-// the residuals training saves, or null.
+// the residuals training saves, or null. bf16: 16-byte aligned, C and H4
+// multiples of 8, C <= 512; f32: C <= 512.
 extern "C" int ic_block_mlp_fwd(const void* x, const void* res, const void* s,
                                 const void* t, const void* w1, const void* b1,
                                 const void* w2, const void* b2, const void* g,
@@ -582,16 +628,39 @@ extern "C" int ic_block_mlp_fwd(const void* x, const void* res, const void* s,
                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != IC_F32 && dtype != IC_BF16) return cudaErrorInvalidValue;
+  if (dtype == IC_BF16)
+    return fwd_bf16(x, res, s, t, w1, b1, w2, b2, g, xhat, h, y, a, u, M, C, H4,
+                    eps, st);
   if (C > MAX_C) return cudaErrorInvalidValue;
-  IC_TRY(dtype == IC_BF16
-             ? launch_ln<bf16>(x, s, t, xhat, M, C, eps, st)
-             : launch_ln<float>(x, s, t, xhat, M, C, eps, st));
+  ln_rows_kernel<<<(unsigned)((M + LN_WARPS - 1) / LN_WARPS), LN_THREADS, 0,
+                          st>>>(static_cast<const float*>(x),
+                                static_cast<const float*>(s),
+                                static_cast<const float*>(t),
+                                static_cast<float*>(xhat), M, C, eps);
+  IC_TRY(cudaGetLastError());
   const Epi fc1{b1, nullptr, nullptr, h, a, nullptr};
-  IC_TRY((launch_gemm<EPI_BIAS_GELU, true, true, false>(dtype, xhat, w1, fc1, M,
-                                                        H4, C, 1, C, st)));
+  IC_TRY((launch_fma_gemm<EPI_BIAS_GELU, true, true, false>(xhat, w1, fc1, M, H4,
+                                                            C, 1, C, st)));
   const Epi fc2{b2, res, g, y, u, nullptr};
-  return launch_gemm<EPI_BIAS_SCALE_RESIDUAL, true, true, false>(
-      dtype, h, w2, fc2, M, C, H4, 1, H4, st);
+  return launch_fma_gemm<EPI_BIAS_SCALE_RESIDUAL, true, true, false>(
+      h, w2, fc2, M, C, H4, 1, H4, st);
+}
+
+// One product of the bf16 forward alone on the GEMM core, with its
+// epilogue, for checks and timing on the card: fc1 (which = 1) h = GELU(A
+// W^T + bias), a = A W^T + bias where aux is set; fc2 (which = 2) y = res +
+// gamma * (A W^T + bias), u = A W^T + bias where aux is set. bf16,
+// contiguous, 16-byte aligned: A (M, K), W (N, K), bias and gamma (N,), res,
+// out and aux (M, N); N and K multiples of 8.
+extern "C" int ic_block_mlp_fc_bf16(int which, const void* A, const void* W,
+                                    const void* bias, const void* res,
+                                    const void* gamma, void* out, void* aux,
+                                    int64_t M, int N, int64_t K, void* stream) {
+  if ((which != 1 && which != 2) || M < 1 || N < 8 || N % 8 || K < 8 || K % 8 ||
+      (M + BM - 1) / BM > 65535)
+    return cudaErrorInvalidValue;
+  return fc_bf16(which, A, W, bias, res, gamma, out, aux, M, N, K,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // Floats of f32 scratch ic_block_mlp_bwd needs for these shapes (f32 only).
@@ -624,7 +693,7 @@ extern "C" int ic_block_mlp_bwd(
   float* dxhat_f = static_cast<float*>(dxhat);
 
   // (d) xhat, du and the partials of db2, dg
-  bwd_prep_kernel<float><<<b.rows_blocks, LN_THREADS, 0, st>>>(
+  bwd_prep_kernel<<<b.rows_blocks, LN_THREADS, 0, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(u),
       static_cast<const float*>(dy), static_cast<const float*>(s),
       static_cast<const float*>(t), static_cast<const float*>(g),
@@ -634,15 +703,15 @@ extern "C" int ic_block_mlp_bwd(
   IC_TRY(launch_sum_rows(p_dg, b.rows_blocks, C, static_cast<float*>(dg), st));
   // (e) da = (du @ W2) * gelu'(a), partials of db1
   const Epi dh{nullptr, a, nullptr, da, nullptr, p_db1};
-  IC_TRY((launch_gemm<EPI_DGELU, true, false, false>(dtype, du, w2, dh, M, H4,
-                                                     C, 1, C, st)));
+  IC_TRY((launch_fma_gemm<EPI_DGELU, true, false, false>(du, w2, dh, M, H4, C, 1,
+                                                         C, st)));
   IC_TRY(launch_sum_rows(p_db1, b.gemm_rows, H4, static_cast<float*>(db1), st));
   // (f) dxhat = da @ W1 in f32
   const Epi dxh{nullptr, nullptr, nullptr, dxhat_f, nullptr, nullptr};
-  IC_TRY((launch_gemm<EPI_F32, true, false, false>(dtype, da, w1, dxh, M, C, H4,
-                                                   1, H4, st)));
+  IC_TRY((launch_fma_gemm<EPI_F32, true, false, false>(da, w1, dxh, M, C, H4, 1,
+                                                       H4, st)));
   // (g) the LayerNorm backward, partials of ds, dt
-  ln_bwd_kernel<float><<<b.rows_blocks, LN_THREADS, 0, st>>>(
+  ln_bwd_kernel<<<b.rows_blocks, LN_THREADS, 0, st>>>(
       static_cast<const float*>(x), dxhat_f, static_cast<const float*>(s),
       static_cast<float*>(dx), p_ds, p_dt, M, C, eps);
   IC_TRY(cudaGetLastError());
@@ -650,12 +719,12 @@ extern "C" int ic_block_mlp_bwd(
   IC_TRY(launch_sum_rows(p_dt, b.rows_blocks, C, static_cast<float*>(dt), st));
   // (h) dW1 (H4, C) = da^T @ xhat; dW2 (C, H4) = du^T @ GELU(a)
   const Epi split{nullptr, nullptr, nullptr, p_split, nullptr, nullptr};
-  IC_TRY((launch_gemm<EPI_F32, false, false, false>(
-      dtype, da, xhat, split, H4, C, M, b.s1.splits, b.s1.kchunk, st)));
+  IC_TRY((launch_fma_gemm<EPI_F32, false, false, false>(
+      da, xhat, split, H4, C, M, b.s1.splits, b.s1.kchunk, st)));
   IC_TRY(launch_sum_rows(p_split, b.s1.splits, (int64_t)H4 * C,
                          static_cast<float*>(dw1), st));
-  IC_TRY((launch_gemm<EPI_F32, false, false, true>(
-      dtype, du, a, split, C, H4, M, b.s2.splits, b.s2.kchunk, st)));
+  IC_TRY((launch_fma_gemm<EPI_F32, false, false, true>(
+      du, a, split, C, H4, M, b.s2.splits, b.s2.kchunk, st)));
   return launch_sum_rows(p_split, b.s2.splits, (int64_t)C * H4,
                          static_cast<float*>(dw2), st);
 }

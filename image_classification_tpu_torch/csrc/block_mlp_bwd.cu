@@ -31,176 +31,20 @@
 // become partials plus that pass: no float atomics, so two runs give the
 // same bits. Rows past M load as zeros and add nothing to any sum.
 //
-// The GEMM core: a 128 x 128 output tile a block, K in steps of 64. One
-// producer warp issues TMA loads (cp.async.bulk.tensor, 128-byte swizzle)
-// into a ring of 3 shared-memory stages guarded by mbarriers; two consumer
-// warpgroups, 64 rows each, run wgmma.mma_async m64n128k16 (bf16 in, f32
-// accumulators) straight from the swizzled stages and release a stage as
-// soon as the wgmma that reads it has retired. No operand is transposed in
-// memory: the activations dh and dxhat read as A are K-major (stored
-// (rows, K)); every other operand is read MN-major through the
-// descriptor's transpose bit: the weights in nn.Linear's (out, in) layout as
-// B, and da, du as A of the weight gradients (stored (K = rows, M)). A tile
-// of a product is staged in f32 in the freed stages, and the epilogue then
-// walks it row by row with 16-byte loads and stores. Two blocks fit on an SM
-// (99 KB of shared memory each), so one block's epilogue overlaps the
-// other's loads. 64 accumulators a thread fit the register budget without
-// setmaxnreg.
-#include <cuda.h>
+// The GEMM core (wgmma_gemm.cuh, shared with the forward in block_mlp.cu)
+// reads the activations dh and dxhat take as A K-major (stored (rows, K)),
+// and every other operand MN-major through the descriptor's transpose bit:
+// the weights in nn.Linear's (out, in) layout as B, and da, du as A of the
+// weight gradients (stored (K = rows, M)).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "packed_rows.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// ------------------------------------------------------------ the GEMM core
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int STAGES = 3;
-constexpr int CONSUMERS = 256;                   // two warpgroups
-constexpr int GEMM_THREADS = CONSUMERS + 32;     // and one producer warp
-constexpr int BOX_BYTES = 64 * 64 * 2;           // one TMA box: 64 x 128 bytes
-constexpr int TILE_BYTES = 2 * BOX_BYTES;        // 128 x 64 bf16
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;      // A and B
-constexpr int EPI_LD = BN + 8;                   // f32 pitch of the staged tile
-constexpr int EPI_COLS = BN / 8;                 // 8-column chunks of a row
-constexpr int EPI_ROWS = CONSUMERS / EPI_COLS;   // rows the epilogue walks at once
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-static_assert(BM * EPI_LD * 4 + EPI_ROWS * BN * 4 <= STAGES * STAGE_BYTES,
-              "the staged tile and its column sums fit in the stages");
-
-enum Epilogue : int {
-  EPI_DGELU = 0,  // da = acc * gelu'(a), h = gelu(a); column partials of da
-  EPI_F32 = 1,    // out (f32) = acc, in split blockIdx.z's slab
-};
-
-struct GemmArgs {
-  int64_t M;        // rows of the output
-  int N;            // columns of the output
-  int64_t K;
-  int64_t kchunk;   // K a split covers, a multiple of BK
-  float* out;       // EPI_F32: (splits, M, N)
-  const bf16* a;    // EPI_DGELU: the saved pre-GELU a, (M, N)
-  bf16* da;         // EPI_DGELU: (M, N)
-  bf16* h;          // EPI_DGELU: (M, N)
-  float* colsum;    // EPI_DGELU: (row tiles, N)
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 2-D tensor map at (c0 innermost, c1) into shared memory;
-// completes bytes on bar. Elements outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (64 x 128, f32) += A (64 x 16) B (16 x 128): A K-major (TRANS_A = 0) or
-// MN-major (1), B MN-major. d's layout: register 4j + 2i + v of lane l in
-// warp w holds row 16w + l/4 + 8i, column 8j + 2(l%4) + v.
-template <int TRANS_A>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
-}
-
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(p), v);
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
-  uint4 raw;
-  bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(v[i]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
+// ------------------------------------------------------------ the epilogues
 // GELU(a) and GELU'(a) by the formulas of ic_gelu_erf_as and ic_gelu_grad_as
 // (common.cuh), sharing one exp and one reciprocal, on the fast intrinsics:
 // the dh epilogue takes both for 4 * M * C elements, which would otherwise
@@ -220,245 +64,106 @@ __device__ __forceinline__ void gelu_and_grad(float a, float& gelu, float& grad)
   grad = 0.5f * (1.0f + erf) + a * (0.3989422804014327f * e);
 }
 
-// out[m, n] = sum over k in this split of A(m, k) B(k, n). The tensor maps
-// (bf16, 128-byte swizzle, boxes 64 wide in the contiguous dimension): A
-// K-major, stored (M, K), boxes of 128 rows; A MN-major, stored (K, M), and
-// B, stored (K, N), boxes of 64 rows. Grid: (N tiles, M tiles, splits).
-template <int EPI, bool A_KMAJOR>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-            const __grid_constant__ CUtensorMap map_b, const GemmArgs args) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * BN;
-  const int64_t m0 = (int64_t)blockIdx.y * BM;
-  const int64_t kbeg = (int64_t)blockIdx.z * args.kchunk;
-  const int64_t kend = kbeg + args.kchunk < args.K ? kbeg + args.kchunk : args.K;
-  const int nk = (int)((kend - kbeg + BK - 1) / BK);
+// out (f32) = acc, in split blockIdx.z's slab of (splits, M, N).
+struct EpiF32 : GemmShape {
+  float* out;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&empty[s]), CONSUMERS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp == CONSUMERS / 32) {
-    // Producer: one thread keeps the ring full.
-    if (lane == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES;
-        mbar_wait(smem_u32(&empty[s]), ((kt / STAGES) & 1) ^ 1);
-        const uint32_t bar = smem_u32(&full[s]);
-        mbar_expect_tx(bar, STAGE_BYTES);
-        const uint32_t a_s = smem_u32(smem + s * STAGE_BYTES);
-        const uint32_t b_s = a_s + TILE_BYTES;
-        const int k0 = (int)(kbeg + (int64_t)kt * BK);
-        if constexpr (A_KMAJOR) {
-          tma_load(a_s, &map_a, bar, k0, (int)m0);
-        } else {
-          tma_load(a_s, &map_a, bar, (int)m0, k0);
-          tma_load(a_s + BOX_BYTES, &map_a, bar, (int)m0 + 64, k0);
-        }
-        tma_load(b_s, &map_b, bar, n0, k0);
-        tma_load(b_s + BOX_BYTES, &map_b, bar, n0 + 64, k0);
-      }
-    }
-    return;
-  }
-
-  // Consumers: warpgroup wg computes rows 64 wg .. 64 wg + 63 of the tile.
-  const int wg = warp / 4;
-  float acc[64];
+  __device__ void operator()(const float (&acc)[64], uint8_t* smem, int64_t m0,
+                             int n0) const {
+    const float* tile = stage_acc(acc, smem);
+    consumer_sync();
+    const int cc = threadIdx.x % EPI_COLS, rg = threadIdx.x / EPI_COLS;
+    const int n = n0 + 8 * cc;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(smem_u32(&full[s]), (kt / STAGES) & 1);
-    const uint32_t a_s = smem_u32(smem + s * STAGE_BYTES) + wg * BOX_BYTES;
-    const uint32_t b_s = smem_u32(smem + s * STAGE_BYTES) + TILE_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      // K-major A: the 16-column slice j of 128-byte rows, 8-row groups 1024
-      // bytes apart. MN-major operands: K rows 16j.., 128 bytes a row, 8-row
-      // groups 1024 bytes apart, 64-wide MN boxes BOX_BYTES apart.
-      const uint64_t da = A_KMAJOR ? gmma_desc(a_s + 32 * j, 16, 1024)
-                                   : gmma_desc(a_s + 2048 * j, BOX_BYTES, 1024);
-      const uint64_t db = gmma_desc(b_s + 2048 * j, BOX_BYTES, 1024);
-      wgmma_m64n128k16<A_KMAJOR ? 0 : 1>(acc, da, db);
-    }
-    wgmma_commit();
-    if (kt > 0) {
-      wgmma_wait<1>();   // the previous stage's products have retired
-      if (lane == 0) mbar_arrive(smem_u32(&empty[(kt - 1) % STAGES]));
-    }
-  }
-  wgmma_wait<0>();
-
-  // Epilogue. Every stage has been read; stage the f32 tile over them. A
-  // thread then finishes 8 columns of BM / EPI_ROWS rows: for the dh
-  // epilogue it loads those rows of a first, so all of them are in flight
-  // at once.
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-  float* tile = reinterpret_cast<float*>(smem);
-  constexpr int ROWS = BM / EPI_ROWS;
-  const int cc = threadIdx.x % EPI_COLS, rg = threadIdx.x / EPI_COLS;
-  const int n = n0 + 8 * cc;
-  {
-    const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
-    const int c0 = 2 * (lane % 4);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        *reinterpret_cast<float2*>(tile + (r0 + 8 * i) * EPI_LD + 8 * j + c0) =
-            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-      }
-    }
-  }
-  uint4 araw[ROWS];
-  if constexpr (EPI == EPI_DGELU) {
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int64_t m = m0 + rg + i * EPI_ROWS;
-      araw[i] = m < args.M && n < args.N
-                    ? *reinterpret_cast<const uint4*>(args.a + m * args.N + n)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-
-  float csum[8];
-#pragma unroll
-  for (int v = 0; v < 8; ++v) csum[v] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = rg + i * EPI_ROWS;
-    const int64_t m = m0 + r;
-    if (m >= args.M || n >= args.N) continue;
-    const float4* src = reinterpret_cast<const float4*>(tile + r * EPI_LD + 8 * cc);
-    const float4 lo = src[0], hi = src[1];
-    if constexpr (EPI == EPI_F32) {
-      float4* dst = reinterpret_cast<float4*>(
-          args.out + ((int64_t)blockIdx.z * args.M + m) * args.N + n);
+    for (int i = 0; i < EPI_ROWS_A_THREAD; ++i) {
+      const int r = rg + i * EPI_ROWS;
+      const int64_t m = m0 + r;
+      if (m >= M || n >= N) continue;
+      // Both halves are read before either is written: the tile is reached
+      // through a generic pointer, so a store may not pass a later load.
+      const float4* src = reinterpret_cast<const float4*>(tile + r * EPI_LD + 8 * cc);
+      const float4 lo = src[0], hi = src[1];
+      float4* dst = reinterpret_cast<float4*>(out + ((int64_t)blockIdx.z * M + m) * N + n);
       dst[0] = lo;
       dst[1] = hi;
-    } else {
-      const float dh[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const int64_t idx = m * args.N + n;
-      float a[8], da[8], h[8];
-      unpack8(araw[i], a);
+    }
+  }
+};
+
+// da = acc * gelu'(a) and h = gelu(a), both rounded, from the saved pre-GELU
+// a; the tile's column sums of the unrounded da into row blockIdx.y of
+// colsum (row tiles, N). A thread loads its rows of a before the tile is
+// read, so all of them are in flight at once.
+struct EpiDgelu : GemmShape {
+  const bf16* a;
+  bf16* da;
+  bf16* h;
+  float* colsum;
+
+  __device__ void operator()(const float (&acc)[64], uint8_t* smem, int64_t m0,
+                             int n0) const {
+    float* tile = stage_acc(acc, smem);
+    const int cc = threadIdx.x % EPI_COLS, rg = threadIdx.x / EPI_COLS;
+    const int n = n0 + 8 * cc;
+    uint4 araw[EPI_ROWS_A_THREAD];
+#pragma unroll
+    for (int i = 0; i < EPI_ROWS_A_THREAD; ++i) {
+      const int64_t m = m0 + rg + i * EPI_ROWS;
+      araw[i] = m < M && n < N ? *reinterpret_cast<const uint4*>(a + m * N + n)
+                               : make_uint4(0u, 0u, 0u, 0u);
+    }
+    consumer_sync();
+    float csum[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) csum[v] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < EPI_ROWS_A_THREAD; ++i) {
+      const int r = rg + i * EPI_ROWS;
+      const int64_t m = m0 + r;
+      if (m >= M || n >= N) continue;
+      float dh[8], av[8], dav[8], hv[8];
+      tile_row8(tile, r, cc, dh);
+      unpack8(araw[i], av);
 #pragma unroll
       for (int v = 0; v < 8; ++v) {
         float grad;
-        gelu_and_grad(a[v], h[v], grad);
-        da[v] = dh[v] * grad;
-        csum[v] += da[v];
+        gelu_and_grad(av[v], hv[v], grad);
+        dav[v] = dh[v] * grad;
+        csum[v] += dav[v];
       }
-      store8(args.da + idx, da);
-      store8(args.h + idx, h);
+      const int64_t idx = m * N + n;
+      store8(da + idx, dav);
+      store8(h + idx, hv);
     }
-  }
-  if constexpr (EPI == EPI_DGELU) {
     // Column sums of the tile: each row group's, then the groups in order.
     float* red = tile + BM * EPI_LD;
 #pragma unroll
     for (int v = 0; v < 8; ++v) red[rg * BN + 8 * cc + v] = csum[v];
-    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-    if (threadIdx.x < BN && n0 + (int)threadIdx.x < args.N) {
+    consumer_sync();
+    if (threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
       float s = 0.0f;
       for (int g = 0; g < EPI_ROWS; ++g) s += red[g * BN + threadIdx.x];
-      args.colsum[(int64_t)blockIdx.y * args.N + n0 + threadIdx.x] = s;
+      colsum[(int64_t)blockIdx.y * N + n0 + threadIdx.x] = s;
     }
   }
-}
+};
 
 // ------------------------------------------------------------ row kernels
-// A group of `lanes` lanes (8, 16 or 32) takes one row; lane i holds the
-// 8-column chunks i + q lanes, q < Q (C <= 512 = 32 lanes x 2 chunks x 8;
-// Q = 1 up to C = 256, which halves the registers a thread holds). A group
-// walks its rows U at a time (2 where Q = 1, 1 where Q = 2, which would
-// spill with two) and loads every input of
-// those rows, packed, before their reductions, so the loads are in flight
-// together. Two blocks fit on an SM, and the grid gives each group at least
-// ROW_MIN rows, up to ROW_GRID blocks, one wave on 132 SMs: a count that
-// depends on the shape alone, so the order of the column sums does not
-// depend on the card.
-constexpr int ROW_THREADS = 256;
-constexpr int ROW_WARPS = ROW_THREADS / 32;
-constexpr int MAX_C = 512;                // ops/block_mlp.py MAX_FUSED_C
+// The row helpers and their layout are in packed_rows.cuh. A group walks
+// its rows U at a time (2 where Q = 1, 1 where Q = 2, which would spill
+// with two) and loads every input of those rows, packed, before their
+// reductions, so the loads are in flight together. Two blocks fit on an SM,
+// and the grid gives each group at least ROW_MIN rows, up to ROW_GRID
+// blocks, one wave on 132 SMs: a count that depends on the shape alone, so
+// the order of the column sums does not depend on the card.
 constexpr int ROW_GRID = 264;
 constexpr int ROW_MIN = 4;
 constexpr int RED_FLOATS = 4096;          // row groups of a block x C, at most
-
-int row_lanes(int C) {
-  const int chunks = C / 8;
-  int lanes = 8;
-  while (lanes < chunks && lanes < 32) lanes *= 2;
-  return lanes;
-}
 
 int row_grid(int64_t M, int C) {
   const int64_t rows = (int64_t)ROW_WARPS * (32 / row_lanes(C)) * ROW_MIN;
   const int64_t need = (M + rows - 1) / rows;
   return (int)(need < ROW_GRID ? need : ROW_GRID);
-}
-
-__device__ __forceinline__ float group_sum(float v, int lanes) {
-  for (int off = lanes / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Replaces a row of x, unpacked into xv (zeros past C), by z = (x - mean) * r
-// and returns r = rsqrt(var + eps): f32 mean and E[x^2] - mean^2 variance
-// (the TPU kernel's _norm_stats). Every lane of the warp calls it.
-template <int Q>
-__device__ __forceinline__ float row_z(float (&xv)[Q][8], int C, int lanes,
-                                       float eps) {
-  float sum = 0.0f, sq = 0.0f;
-#pragma unroll
-  for (int q = 0; q < Q; ++q)
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      sum += xv[q][v];
-      sq += xv[q][v] * xv[q][v];
-    }
-  sum = group_sum(sum, lanes);
-  sq = group_sum(sq, lanes);
-  const float mu = sum / C;
-  const float r = rsqrtf(fmaxf(sq / C - mu * mu, 0.0f) + eps);
-#pragma unroll
-  for (int q = 0; q < Q; ++q)
-#pragma unroll
-    for (int v = 0; v < 8; ++v) xv[q][v] = (xv[q][v] - mu) * r;
-  return r;
-}
-
-// The lane's chunks of row m of a (rows, C) bf16 tensor, packed; zeros past
-// C or where !ok.
-template <int Q>
-__device__ __forceinline__ void load_packed(const bf16* __restrict__ p, int64_t m,
-                                            bool ok, int C, int lanes, int li,
-                                            uint4 (&v)[Q]) {
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int col = 8 * (li + q * lanes);
-    v[q] = ok && col < C ? *reinterpret_cast<const uint4*>(p + m * C + col)
-                         : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <int Q>
-__device__ __forceinline__ void unpack_row(const uint4 (&raw)[Q], float (&v)[Q][8]) {
-#pragma unroll
-  for (int q = 0; q < Q; ++q) unpack8(raw[q], v[q]);
 }
 
 // The block's two column accumulators summed over its row groups in order,
@@ -717,82 +422,6 @@ __global__ void __launch_bounds__(SUM_THREADS) sum_partials_kernel(const Segs ss
 }
 
 // ------------------------------------------------------------------- host
-#define IC_TRY(expr)                        \
-  do {                                      \
-    const cudaError_t err_ = (expr);        \
-    if (err_ != cudaSuccess) return err_;   \
-  } while (0)
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled through the runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 (rows, cols) tensor, cols contiguous, read in boxes of box_rows x 64
-// columns with the 128-byte swizzle.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int64_t rows,
-                     int64_t cols, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// C = A B with A K-major (stored (M, K)) or MN-major (stored (K, M)) and B
-// stored (K, N): the maps of the GEMM core.
-cudaError_t make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a,
-                      const void* b, bool a_kmajor, int64_t M, int N, int64_t K) {
-  IC_TRY(a_kmajor ? make_map(ma, a, M, K, BM) : make_map(ma, a, K, M, 64));
-  return make_map(mb, b, K, N, 64);
-}
-
-template <int EPI, bool A_KMAJOR>
-cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
-                        const GemmArgs& args, int splits, cudaStream_t st) {
-  static bool configured = false;
-  if (!configured) {
-    IC_TRY(cudaFuncSetAttribute(gemm_kernel<EPI, A_KMAJOR>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                SMEM_BYTES));
-    IC_TRY(cudaFuncSetAttribute(gemm_kernel<EPI, A_KMAJOR>,
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxShared));
-    configured = true;
-  }
-  const dim3 grid((args.N + BN - 1) / BN, (unsigned)((args.M + BM - 1) / BM), splits);
-  gemm_kernel<EPI, A_KMAJOR><<<grid, GEMM_THREADS, SMEM_BYTES, st>>>(ma, mb, args);
-  return cudaGetLastError();
-}
-
 // Splits of a K = M weight-gradient product: at most two blocks on each of
 // 132 SMs in all, one wave (a fixed count, so the sums' order does not
 // depend on the card), each split a whole number of k-tiles.
@@ -869,32 +498,31 @@ extern "C" int ic_block_mlp_bwd_bf16(
   const bf16* xb = static_cast<const bf16*>(x);
 
   CUtensorMap dh_a, dh_b, dxh_a, dxh_b, w1_a, w1_b, w2_a, w2_b;
-  IC_TRY(make_maps(&dh_a, &dh_b, du, w2, true, M, H4, C));
-  IC_TRY(make_maps(&dxh_a, &dxh_b, da, w1, true, M, C, H4));
-  IC_TRY(make_maps(&w1_a, &w1_b, da, xhat, false, H4, C, M));
-  IC_TRY(make_maps(&w2_a, &w2_b, du, h, false, C, H4, M));
+  IC_TRY(make_maps(&dh_a, &dh_b, du, w2, true, false, M, H4, C));
+  IC_TRY(make_maps(&dxh_a, &dxh_b, da, w1, true, false, M, C, H4));
+  IC_TRY(make_maps(&w1_a, &w1_b, da, xhat, false, false, H4, C, M));
+  IC_TRY(make_maps(&w2_a, &w2_b, du, h, false, false, C, H4, M));
 
   // (a) xhat, du and the partials of db2, dg
   IC_TRY(launch_rows(b.grid, xb, u, dy, s, t, g, xhat, du, nullptr, nullptr,
                      f + b.db2, f + b.dg, M, C, eps, true, st));
   // (b) da = (du @ W2) * gelu'(a), h = gelu(a), partials of db1
-  GemmArgs dh{M, H4, C, ((C + BK - 1) / BK) * BK, nullptr,
-              static_cast<const bf16*>(a), static_cast<bf16*>(da),
-              static_cast<bf16*>(h), f + b.db1};
-  IC_TRY((launch_gemm<EPI_DGELU, true>(dh_a, dh_b, dh, 1, st)));
+  const EpiDgelu dh{{M, H4, C, ((C + BK - 1) / BK) * BK},
+                    static_cast<const bf16*>(a), static_cast<bf16*>(da),
+                    static_cast<bf16*>(h), f + b.db1};
+  IC_TRY((launch_gemm<EpiDgelu, true, false>(dh_a, dh_b, dh, 1, st)));
   // (c) dxhat = da @ W1 in f32
-  GemmArgs dxh{M, C, H4, ((H4 + BK - 1) / BK) * BK, static_cast<float*>(dxhat),
-               nullptr, nullptr, nullptr, nullptr};
-  IC_TRY((launch_gemm<EPI_F32, true>(dxh_a, dxh_b, dxh, 1, st)));
+  const EpiF32 dxh{{M, C, H4, ((H4 + BK - 1) / BK) * BK}, static_cast<float*>(dxhat)};
+  IC_TRY((launch_gemm<EpiF32, true, false>(dxh_a, dxh_b, dxh, 1, st)));
   // (d) the LayerNorm backward, partials of ds, dt
   IC_TRY(launch_rows(b.grid, xb, nullptr, nullptr, s, nullptr, nullptr, nullptr,
                      nullptr, static_cast<const float*>(dxhat), dx, f + b.ds,
                      f + b.dt, M, C, eps, false, st));
   // (e) dW1 (4C, C) = da^T @ xhat; (f) dW2 (C, 4C) = du^T @ h, split over M
-  GemmArgs gw1{H4, C, M, b.s1.kchunk, f + b.w1, nullptr, nullptr, nullptr, nullptr};
-  IC_TRY((launch_gemm<EPI_F32, false>(w1_a, w1_b, gw1, b.s1.splits, st)));
-  GemmArgs gw2{C, H4, M, b.s2.kchunk, f + b.w2, nullptr, nullptr, nullptr, nullptr};
-  IC_TRY((launch_gemm<EPI_F32, false>(w2_a, w2_b, gw2, b.s2.splits, st)));
+  const EpiF32 gw1{{H4, C, M, b.s1.kchunk}, f + b.w1};
+  IC_TRY((launch_gemm<EpiF32, false, false>(w1_a, w1_b, gw1, b.s1.splits, st)));
+  const EpiF32 gw2{{C, H4, M, b.s2.kchunk}, f + b.w2};
+  IC_TRY((launch_gemm<EpiF32, false, false>(w2_a, w2_b, gw2, b.s2.splits, st)));
   // (g) every gradient from its partials
   const Seg segs[MAX_SEGS] = {
       {f + b.w1, static_cast<float*>(dw1), b.s1.splits, H4 * C, 0},
@@ -935,14 +563,13 @@ extern "C" int ic_block_mlp_gemm(const void* a, const void* b, void* out,
       (a_kmajor ? K % 8 : M % 8))
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  IC_TRY(make_maps(&ma, &mb, a, b, a_kmajor != 0, M, N, K));
+  IC_TRY(make_maps(&ma, &mb, a, b, a_kmajor != 0, false, M, N, K));
   const Split sp = split_k ? weight_grad_split((int)M, N, K)
                            : Split{1, ((K + BK - 1) / BK) * BK};
-  const GemmArgs args{M, N, K, sp.kchunk, static_cast<float*>(out),
-                      nullptr, nullptr, nullptr, nullptr};
+  const EpiF32 args{{M, N, K, sp.kchunk}, static_cast<float*>(out)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a_kmajor ? launch_gemm<EPI_F32, true>(ma, mb, args, sp.splits, st)
-                  : launch_gemm<EPI_F32, false>(ma, mb, args, sp.splits, st);
+  return a_kmajor ? launch_gemm<EpiF32, true, false>(ma, mb, args, sp.splits, st)
+                  : launch_gemm<EpiF32, false, false>(ma, mb, args, sp.splits, st);
 }
 
 extern "C" const char* ic_error_string(int code) {

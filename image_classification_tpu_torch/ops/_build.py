@@ -49,6 +49,7 @@ _SIGNATURES = {
     "ic_dwconv7x7_wgrad_partials": ([_I, _I, _I, _I], _I),
     "ic_dwconv7x7_wgrad": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "ic_block_mlp_fwd": ([_P] * 14 + [_I64, _I, _I, _F, _I, _P], _I),
+    "ic_block_mlp_fc_bf16": ([_I] + [_P] * 7 + [_I64, _I, _I64, _P], _I),
     "ic_block_mlp_bwd_scratch": ([_I64, _I, _I, _I], _I64),
     "ic_block_mlp_bwd": ([_P] * 22 + [_I64, _I, _I, _F, _I, _P], _I),
     "ic_block_mlp_bwd_bf16_scratch": ([_I64, _I], _I64),

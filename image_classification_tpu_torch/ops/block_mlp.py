@@ -24,10 +24,11 @@ they feed a product, ``h = GELU(a_saved)`` is rounded, the column sums
 runs as :class:`_BlockMlpFunction`. On a CPU tensor both directions run their
 plain versions (:func:`block_mlp_fwd_reference`,
 :func:`block_mlp_bwd_reference`); on a CUDA tensor they launch hand-written
-kernels, or raise: the forward and the f32 backward in ``csrc/block_mlp.cu``
-(row kernels and tiled GEMMs with fused epilogues), the bf16 backward in
-``csrc/block_mlp_bwd.cu`` (a GEMM core on wgmma fed by TMA; see the notes at
-their tops).
+kernels, or raise. In bf16 both directions run on one GEMM core on wgmma fed
+by TMA (``csrc/wgmma_gemm.cuh``) with row passes and fused epilogues around
+it: the forward in ``csrc/block_mlp.cu``, the backward in
+``csrc/block_mlp_bwd.cu``. In f32 both run the FMA path of
+``csrc/block_mlp.cu`` (see the notes at the sources' tops).
 """
 
 from __future__ import annotations
@@ -123,9 +124,9 @@ def _prepare(name, x, res, s, t, w1, b1, w2, b2, g, unused=()):
                              f"expected {want}")
     if C > MAX_FUSED_C:
         raise ValueError(f"{name}: C={C} exceeds {MAX_FUSED_C}")
-    if dt == torch.bfloat16 and C % 8:
-        raise ValueError(f"{name}: the bf16 kernel needs C % 8 == 0 "
-                         "(16-byte rows)")
+    if dt == torch.bfloat16 and (C % 8 or H4 % 8):
+        raise ValueError(f"{name}: the bf16 kernel needs C % 8 == 0 and "
+                         f"4C % 8 == 0 (16-byte rows), got C={C}, 4C={H4}")
     if -(-M // (128 if dt == torch.bfloat16 else 64)) > 65535:
         raise ValueError(f"{name}: M={M} rows exceed the launch grid")
     names = ("res", "s", "t", "w1", "b1", "w2", "b2", "g")

@@ -69,6 +69,7 @@ from test_torch_train import (
     port_params,
     start_states,
 )
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 NATIVE = (24, 32)
 SIZE = 32

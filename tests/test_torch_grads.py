@@ -49,6 +49,7 @@ from image_classification_tpu_torch.ops import (
 from image_classification_tpu_torch.ops import dwconv as dwconv_mod
 
 from test_torch_ops import _block_inputs
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 BF16_REL = 2.0 ** -7   # one bf16 ulp of the largest element, with margin
 
@@ -269,13 +270,17 @@ def test_block_mlp_bwd_matches_jax_pallas_vjp(dtype):
         _close(o, r, rel if name in ("dx", "dres") else 1e-5, name)
 
 
-def test_block_mlp_train_forward_saves_the_pallas_residuals():
+@pytest.mark.parametrize("m,c", [(64, 32), (50, 40), (130, 24)])
+def test_block_mlp_train_forward_saves_the_pallas_residuals(m, c):
     """The training forward returns what ``_block_mlp_fwd`` saves: ``a`` (fc1
     output before GELU) and ``u`` (fc2 output), rounded to the working
-    dtype; the forward's ``h`` is GELU of the unrounded ``a``."""
+    dtype; the forward's ``h`` is GELU of the unrounded ``a``. Rows and
+    widths the kernels tile unevenly: 50 and 130 rows against the JAX
+    kernel's 32-row tiles (it saves a and u padded) and the card's 128-row
+    tiles; C = 40 and 24 against the 64-column TMA boxes."""
     from image_classification_tpu.ops.block_mlp import _block_mlp_fwd
 
-    a = _block_inputs(64, 32, seed=4)
+    a = _block_inputs(m, c, seed=4 + m + c)
     args = [jnp.asarray(a[k]).astype(jnp.bfloat16) if k in ("x", "res")
             else jnp.asarray(a[k]) for k in ORDER]
     y, saved = _block_mlp_fwd(*args, 1e-6, 32, True)
@@ -283,8 +288,9 @@ def test_block_mlp_train_forward_saves_the_pallas_residuals():
          for k, v in zip(ORDER, args)]
     t[4], t[6] = t[4].t(), t[6].t()
     oy, oa, ou = block_mlp_fwd_reference(*t)
-    assert oa.dtype == ou.dtype == torch.bfloat16
-    for name, o, r in (("y", oy, y), ("a", oa, saved[1]), ("u", ou, saved[2])):
+    assert oy.dtype == oa.dtype == ou.dtype == torch.bfloat16
+    assert oa.shape == (m, 4 * c) and ou.shape == (m, c)
+    for name, o, r in (("y", oy, y), ("a", oa, saved[1][:m]), ("u", ou, saved[2][:m])):
         _close(o, _np(r), BF16_REL, name)
     assert torch.equal(oy, block_mlp_reference(*t))
 

@@ -4,9 +4,11 @@ the config keys it does not follow raise or warn."""
 
 import dataclasses
 import glob
+import importlib
 import logging
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -28,6 +30,7 @@ from image_classification_tpu_torch.ops import (
     gelu,
     warp,
 )
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
@@ -101,6 +104,49 @@ def test_wrappers_take_the_plain_path_on_cpu(dtype):
     out = warp(x[..., :3].contiguous(), torch.rand(2, 5, 6, 2) * 9)
     assert out.shape == (2, 5, 6, 3) and out.dtype == dtype
     assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * len(KERNEL_WRAPPERS)
+
+
+def _meta_block_args(m, c, dtype=torch.bfloat16, res_rows=None):
+    """The block tail's arguments as meta tensors (shapes and dtypes, no
+    storage): neither the CPU's plain path nor a card."""
+    meta = dict(device="meta")
+    f32 = dict(dtype=torch.float32, **meta)
+    return (torch.empty(m, c, dtype=dtype, **meta),
+            torch.empty(res_rows or m, c, dtype=dtype, **meta),
+            torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(4 * c, c, **f32),
+            torch.empty(4 * c, **f32), torch.empty(c, 4 * c, **f32), torch.empty(c, **f32),
+            torch.empty(c, **f32))
+
+
+@pytest.mark.parametrize("m,c,dtype,res_rows,match", [
+    (64, 12, torch.bfloat16, None, "C % 8 == 0"),
+    (64, 520, torch.bfloat16, None, "exceeds 512"),
+    (64, 32, torch.float16, None, "unsupported dtype"),
+    (64, 32, torch.bfloat16, 63, "res is"),
+    (128 * 65535 + 1, 32, torch.bfloat16, None, "launch grid"),
+    (64, 32, torch.bfloat16, None, "one CUDA device"),
+], ids=["c_not_multiple_of_8", "c_past_cutoff", "float16", "res_shape",
+        "rows_past_grid", "accepted_shape_off_the_card"])
+def test_block_mlp_fwd_refuses_before_any_device_work(m, c, dtype, res_rows, match,
+                                                       monkeypatch):
+    """Off the CPU, ``block_mlp_fwd`` checks shape, dtype and device first and
+    raises ``ValueError``: a refused shape never reaches the plain version,
+    the kernel library (its build included) or the launch counter."""
+    from image_classification_tpu_torch.ops import _build
+
+    block_mlp_mod = importlib.import_module("image_classification_tpu_torch.ops.block_mlp")
+
+    def must_not_run(*args, **kwargs):
+        raise AssertionError("reached past the checks")
+
+    monkeypatch.setattr(block_mlp_mod, "block_mlp_fwd_reference", must_not_run)
+    monkeypatch.setattr(_build, "library", must_not_run)
+    block_mlp.launches = 0
+    for save in (False, True):
+        with pytest.raises(ValueError, match=re.escape(match)):
+            block_mlp_mod.block_mlp_fwd(*_meta_block_args(m, c, dtype, res_rows),
+                                        save=save)
+    assert block_mlp.launches == 0
 
 
 def _tiny_cfg(tmp_path, **over) -> Config:

@@ -25,6 +25,7 @@ from image_classification_tpu_torch.data import (
     WeightedSampler,
 )
 from image_classification_tpu_torch.data import manifest, sampling, splits
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 
 def long_tail(n_classes=44, n=256, seed=3):

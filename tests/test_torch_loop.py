@@ -44,6 +44,7 @@ from image_classification_tpu_torch.train import kfold
 from image_classification_tpu_torch.train.loop import progressive_size, train_fold
 from image_classification_tpu_torch.train.train_state import create_train_state
 from image_classification_tpu_torch.utils import checkpoint as ckpt
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 NUM_CLASSES, SIZE, N_TRAIN, N_TEST = 6, 32, 64, 12
 FOLDS, EPOCHS = 2, 3

@@ -22,6 +22,7 @@ from image_classification_tpu_torch.models import ConvNeXt, DeepSupervisionModel
 from image_classification_tpu_torch.models.pretrained import (
     convnext_state_dict_from_jax,
 )
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 DEPTHS = (1, 1, 2, 1)
 DIMS = (32, 64, 128, 640)

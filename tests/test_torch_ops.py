@@ -20,6 +20,20 @@ from image_classification_tpu_torch.ops import (
     gelu,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Each port test module runs torch on one thread, and gives the count
+    back after. The suite runs in several worker processes on a few cores:
+    torch's default of a thread per core in each of them oversubscribes the
+    cores, and the tests' small shapes gain nothing from more threads. Other
+    port test modules import this fixture, so it holds for each of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 
 

@@ -43,6 +43,7 @@ from image_classification_tpu_torch.models.factory import create_model
 from image_classification_tpu_torch.train.step import make_predict_step
 
 from test_torch_model import jax_model, port_model, randomized_params
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 NATIVE = (24, 32)
 SIZE = 32

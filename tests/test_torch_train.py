@@ -54,6 +54,7 @@ from image_classification_tpu_torch.train.train_state import TrainState
 from image_classification_tpu_torch.utils import metrics
 
 from test_torch_model import DEPTHS, DIMS, NUM_CLASSES, jax_model, randomized_params
+from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 
 SIZE = 32
 B, ACCUM = 8, 2
