@@ -5,6 +5,7 @@
 runs, on the tensor's device,
 
     fused geometric warp (RRC + flips + SSR + distortion, one resampling)
+    -> RandAugment (when ``use_randaugment``)
     -> OneOf{noise, gaussian blur, motion blur}
     -> ColorJitter
     -> OneOf{RGBShift, HSV, ToGray}
@@ -29,6 +30,7 @@ from image_classification_tpu_torch.aug import color as color_ops
 from image_classification_tpu_torch.aug import erase as erase_ops
 from image_classification_tpu_torch.aug import filters as filter_ops
 from image_classification_tpu_torch.aug import geometry as geom
+from image_classification_tpu_torch.aug import randaug as randaug_ops
 
 
 @functools.cache
@@ -94,12 +96,7 @@ def eval_preprocess(
 
 def aug_configs_from(cfg) -> dict:
     """The per-stage configs from the Config. ``warp_impl`` selects nothing
-    in the port (the warp kernel always runs on a card); RandAugment (off in
-    V4) is not ported."""
-    if cfg.use_randaugment:
-        raise NotImplementedError(
-            "use_randaugment=true: RandAugment (aug/randaug.py) is not ported "
-            "yet (ROADMAP queue A, item 13)")
+    in the port (the warp kernel always runs on a card)."""
     return {
         "geometry": geom.GeometryCfg(
             rrc_scale=tuple(cfg.rrc_scale),
@@ -144,6 +141,15 @@ def aug_configs_from(cfg) -> dict:
             max_holes=cfg.erase_max_holes,
             min_holes=cfg.erase_min_holes,
         ),
+        "randaugment": (
+            None if not cfg.use_randaugment
+            else randaug_ops.RandAugmentCfg(
+                prob=cfg.randaugment_prob,
+                num_ops=cfg.randaugment_num_ops,
+                magnitude=cfg.randaugment_magnitude,
+                mag_std=cfg.randaugment_mag_std,
+            )
+        ),
         "image_size": tuple(cfg.image_size),
         "mean": tuple(cfg.mean),
         "std": tuple(cfg.std),
@@ -159,19 +165,24 @@ class AugDraws(NamedTuple):
     jitter: color_ops.ColorJitterDraws
     color_shift: color_ops.ColorShiftDraws
     erase: erase_ops.EraseDraws
+    randaug: randaug_ops.RandAugDraws | None = None   # None when it is off
 
 
 def draw_train_augment(generator: torch.Generator, shape, aug: dict) -> AugDraws:
     """Every random draw of :func:`train_augment` for a uint8 batch of
-    ``shape`` (B, H, W, C), on ``generator``'s device, in a fixed order."""
+    ``shape`` (B, H, W, C), on ``generator``'s device, in a fixed order
+    (RandAugment's last, so turning it on leaves the others' draws as they
+    were)."""
     B, C = shape[0], shape[-1]
     out_shape = (B, *aug["image_size"], C)
+    ra = aug.get("randaugment")
     return AugDraws(
         geom.draw_geometry(generator, B, aug["image_size"], aug["geometry"]),
         filter_ops.draw_noise_blur(generator, out_shape, aug["noise_blur"]),
         color_ops.draw_color_jitter(generator, B, aug["jitter"]),
         color_ops.draw_color_shift(generator, B, aug["color_shift"]),
         erase_ops.draw_coarse_dropout(generator, out_shape, aug["erase"]),
+        None if ra is None else randaug_ops.draw_rand_augment(generator, B, ra),
     )
 
 
@@ -180,6 +191,8 @@ def apply_train_augment(images_u8: torch.Tensor, d: AugDraws, aug: dict) -> torc
     ``aug['dtype']``, from ready-made draws."""
     x = images_u8.to(aug["dtype"])
     x = geom.geometric_augment(x, d.geometry, aug["image_size"], aug["geometry"])
+    if aug.get("randaugment") is not None:
+        x = randaug_ops.apply_rand_augment(x, d.randaug, aug["randaugment"])
     x = filter_ops.noise_blur_oneof(x, d.noise_blur, aug["noise_blur"])
     x = color_ops.color_jitter(x, d.jitter, aug["jitter"])
     x = color_ops.color_shift_oneof(x, d.color_shift, aug["color_shift"])

@@ -3,7 +3,8 @@
     python -m image_classification_tpu_torch.cli train [--config cfg.json] \
         [--resume] [--device cuda] [key=value ...]
     python -m image_classification_tpu_torch.cli predict [--config cfg.json] \
-        [--folds 1,2] [--metric acc|loss] [--device cuda] [key=value ...]
+        [--folds 1,2] [--best-fold] [--metric acc|loss] [--device cuda] \
+        [key=value ...]
 
 ``train`` mirrors the JAX package's ``cli train``: stratified K-fold
 training (``train/kfold.py``), which writes per fold the best-acc and
@@ -18,7 +19,13 @@ each fold from its ``train_state_fold{k}.pt``.
 dict per fold from ``{model_save_path}/best_model_fold{k}.pt`` (or
 ``best_loss_model_fold{k}.pt`` with ``--metric loss``), runs the
 TTA-ensemble over the test set and writes ``id,predict`` to
-``submission_path``.
+``submission_path``. ``--best-fold`` keeps only the fold of ``--folds``
+whose stored metric is best (``utils/checkpoint.py:select_best_fold``).
+
+With ``norm_stats=dataset`` both normalize with the train set's channel
+stats (``data/stats.py``): ``train`` resolves them once and saves
+``{model_save_path}/norm_stats.json``, and its submission uses them too;
+``predict`` reads that file, or else computes them from the train set.
 
 Images come from the decoded-image cache under ``cache_dir`` (see
 ``data/source.py:load_decode_cache``). The device defaults to ``cuda``;
@@ -35,7 +42,13 @@ import sys
 import torch
 
 from image_classification_tpu_torch.core.config import load_config
+from image_classification_tpu_torch.data.stats import (
+    NORM_STATS_FILE,
+    load_saved_norm_stats,
+    resolve_norm_stats,
+)
 from image_classification_tpu_torch.utils.checkpoint import best_path as checkpoint_path
+from image_classification_tpu_torch.utils.checkpoint import select_best_fold
 
 
 def _test_loader(cfg, device):
@@ -55,7 +68,8 @@ def cmd_train(args) -> None:
     from image_classification_tpu_torch.utils.logging import setup_logging
 
     cfg = load_config(args.config, args.overrides)
-    logger = setup_logging(os.path.join(cfg.output_dir, "train.log"))
+    # each run logs to its own output_dir, also when one process trains twice
+    logger = setup_logging(os.path.join(cfg.output_dir, "train.log"), force=True)
     os.makedirs(cfg.model_save_path, exist_ok=True)
     os.makedirs(cfg.output_dir, exist_ok=True)
     device = torch.device(args.device)
@@ -71,6 +85,11 @@ def cmd_train(args) -> None:
         logger.info("%s fold %d best val acc: %.4f", r.bundle.name, r.fold,
                     r.best_val_acc)
 
+    if cfg.norm_stats == "dataset":
+        # the stats the folds trained with (the JAX package's train entry
+        # predicts its test set with ImageNet's instead)
+        cfg = load_saved_norm_stats(cfg, os.path.join(cfg.model_save_path,
+                                                      NORM_STATS_FILE))
     # test-set ensemble of the folds' best weights -> submission
     models = []
     for r in results:
@@ -85,12 +104,26 @@ def cmd_predict(args) -> None:
     from image_classification_tpu_torch.models.factory import create_model
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    logger = logging.getLogger("ic_tpu_torch")
     cfg = load_config(args.config, args.overrides)
     if cfg.norm_stats == "dataset":
-        raise NotImplementedError("norm_stats=dataset is not ported yet")
+        from image_classification_tpu_torch.data import Manifest
+        from image_classification_tpu_torch.train.kfold import build_source
+
+        resolved = load_saved_norm_stats(cfg, os.path.join(cfg.model_save_path,
+                                                           NORM_STATS_FILE))
+        if resolved is None:
+            manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
+            resolved = resolve_norm_stats(cfg, build_source(cfg, manifest, cfg.train_dir))
+        cfg = resolved
     device = torch.device(args.device)
+    folds = args.folds or [1]
+    if args.best_fold:
+        best, score = select_best_fold(cfg.model_save_path, folds, args.metric)
+        logger.info("best fold by stored val_%s: %d (%.4f)", args.metric, best, score)
+        folds = [best]
     models = []
-    for fold in args.folds or [1]:
+    for fold in folds:
         model = create_model(cfg).module
         sd = torch.load(checkpoint_path(cfg.model_save_path, fold, args.metric),
                         map_location="cpu", weights_only=True)
@@ -114,6 +147,8 @@ def main(argv: list[str] | None = None) -> None:
     sp.add_argument("--config", default=None, help="JSON config file")
     sp.add_argument("--folds", type=lambda s: [int(x) for x in s.split(",")],
                     default=None, help="fold checkpoints to ensemble, e.g. 1,2,3")
+    sp.add_argument("--best-fold", action="store_true",
+                    help="use only the fold with the best stored metric")
     sp.add_argument("--metric", choices=("acc", "loss"), default="acc",
                     help="checkpoint tier: best-val-acc or best-val-loss")
     sp.add_argument("--device", default="cuda", help="torch device")

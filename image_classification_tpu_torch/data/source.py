@@ -31,6 +31,19 @@ class ArraySource:
         return np.asarray(self.images[indices])
 
 
+class CachedSource(ArraySource):
+    """The decoded images of one decode cache; ``_cache_key()`` names that
+    cache, as the JAX package's ``ImageSource`` does, so derived caches
+    (the channel stats, ``data/stats.py``) are keyed the same way."""
+
+    def __init__(self, images: np.ndarray, key: str):
+        super().__init__(images)
+        self.key = key
+
+    def _cache_key(self) -> str:
+        return self.key
+
+
 def decode_cache_key(img_dir: str, ids, native_size: tuple[int, int]) -> str:
     """``ImageSource._cache_key`` of the JAX package."""
     hsh = hashlib.sha256()
@@ -59,7 +72,7 @@ def save_decode_cache(img_dir: str, ids, images: np.ndarray, cache_dir: str) -> 
 
 
 def load_decode_cache(img_dir: str, ids, native_size: tuple[int, int],
-                      cache_dir: str) -> ArraySource:
+                      cache_dir: str) -> CachedSource:
     """The decoded images of ``ids`` under ``img_dir``, memory-mapped from
     ``cache_dir``; raises FileNotFoundError when no complete cache exists."""
     key = decode_cache_key(img_dir, ids, native_size)
@@ -76,4 +89,4 @@ def load_decode_cache(img_dir: str, ids, native_size: tuple[int, int],
             "build the cache once with the JAX package (use_decode_cache=true)")
     data = np.memmap(os.path.join(cache_dir, f"imgs_{key}.u8"), dtype=np.uint8,
                      mode="r", shape=shape)
-    return ArraySource(data)
+    return CachedSource(data, key)

@@ -1,6 +1,6 @@
 """Model factory, port of ``image_classification_tpu/models/factory.py`` for
 the ConvNeXt family. EfficientNet and ViT are not ported yet (ROADMAP queue A,
-item 12)."""
+item 6)."""
 
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def create_model(cfg, model_name: str | None = None,
     if family != "convnext":
         raise NotImplementedError(
             f"{name}: only ConvNeXt is ported; EfficientNet and ViT are "
-            "ROADMAP queue A, item 12")
+            "ROADMAP queue A, item 6")
     if cfg.drop_path_rate > 0 or cfg.drop_rate > 0:
         raise NotImplementedError(
             "drop_path_rate > 0 and drop_rate > 0 (stochastic depth, head "

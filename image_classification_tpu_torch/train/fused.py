@@ -17,6 +17,12 @@ PyTorch: the JAX version is XLA, not a Pallas kernel). Formula for formula:
 The bias corrections and the LR are computed on the host in float32 from the
 host count; the gradient norm and the clip scale stay on the device, so the
 update never waits for the card.
+
+With frozen parameters (``train/optim.py:trainable_indices``) the norm, the
+moments and the update run over the trainable ones only, as the JAX
+package's ``optax.multi_transform`` with ``set_to_zero`` does; the frozen
+ones keep their bits, and the EMA still averages every parameter, as the
+JAX step's EMA after its generic update does.
 """
 
 from __future__ import annotations
@@ -31,13 +37,17 @@ _INT32_MAX = 2**31 - 1
 
 @torch.no_grad()
 def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
-                    tx, cfg) -> torch.Tensor | None:
+                    tx, cfg, trainable: list[int] | None = None) -> torch.Tensor | None:
     """Apply one update to ``state`` in place (parameters, ``mu``, ``nu``,
-    EMA, ``count``). ``grads`` align with ``state.params()``; ``tx`` is
+    EMA, ``count``). ``grads`` align with ``state.params()``, or with its
+    entries at ``trainable`` when given (the others are frozen); ``tx`` is
     ``train/optim.py:build_optimizer``'s result. Returns the global gradient
     norm (a device scalar) where the clip or ``cfg.debug_nans`` needs it,
     else None."""
-    params = state.params()
+    all_params = state.params()
+    params, mu, nu = all_params, state.mu, state.nu
+    if trainable is not None:
+        params, mu, nu = ([v[i] for i in trainable] for v in (all_params, mu, nu))
     b1, b2, eps, wd = tx.b1, tx.b2, tx.eps, tx.weight_decay
     count_inc = min(state.count + 1, _INT32_MAX)   # optax.safe_increment
     lr = tx.schedule(state.count)
@@ -56,19 +66,19 @@ def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
     bc1 = float(f32(1.0) - f32(b1) ** f32(count_inc))
     bc2 = float(f32(1.0) - f32(b2) ** f32(count_inc))
 
-    torch._foreach_mul_(state.mu, b1)
-    torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
-    torch._foreach_mul_(state.nu, b2)
-    torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
-    denom = torch._foreach_div(state.nu, bc2)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    denom = torch._foreach_div(nu, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
-    update = torch._foreach_div(state.mu, bc1)
+    update = torch._foreach_div(mu, bc1)
     torch._foreach_div_(update, denom)
     torch._foreach_add_(update, params, alpha=wd)
     torch._foreach_mul_(update, lr)
     torch._foreach_sub_(params, update)
     if state.ema is not None:
-        ema_update(state.ema, params, cfg.ema_decay)
+        ema_update(state.ema, all_params, cfg.ema_decay)
     state.count = count_inc
     return gnorm

@@ -1,16 +1,18 @@
 """Stratified K-fold orchestration, port of
 ``image_classification_tpu/train/kfold.py``: read the manifest, log the class
-distribution, split with the stratified K-fold (``cfg.fold_seed``), and per
-fold build the loaders (the validation batch is ``batch_size *
-val_batch_multiplier``), then train the fold; a fold that fails is logged
-with its trace and skipped, as in the reference.
+distribution, resolve ``norm_stats=dataset`` once for the run (saved as
+``model_save_path/norm_stats.json``), split, and per fold build the loaders
+(the validation batch is ``batch_size * val_batch_multiplier``), then train
+the fold; a fold that fails is logged with its trace and skipped, as in the
+reference. The split is the stratified K-fold (``cfg.fold_seed``), or with
+``split_mode=holdout`` one stratified split of ``val_fraction`` after every
+class is oversampled to 2 members, trained as fold 1.
 
 The images come from the decoded-image cache (``data/source.py:
 load_decode_cache``), read once over the whole manifest; folds index into it.
 
 Not ported, each raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
-queue A, item 14), ``split_mode=holdout`` (sklearn's ``train_test_split``),
-``norm_stats=dataset``, ``train_ensemble`` (ViT, queue A, item 12) and
+queue A, item 8), ``train_ensemble`` (ViT, queue A, item 6) and
 ``use_decode_cache=false`` (decoding without the cache, queue A, item 4).
 ``prefetch_depth > 0`` logs a warning: the loader runs in the step's thread.
 """
@@ -18,6 +20,7 @@ queue A, item 14), ``split_mode=holdout`` (sklearn's ``train_test_split``),
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any
 
 import numpy as np
@@ -39,7 +42,9 @@ from image_classification_tpu_torch.data.source import load_decode_cache
 from image_classification_tpu_torch.data.splits import (
     oversample_minority,
     stratified_kfold,
+    stratified_split,
 )
+from image_classification_tpu_torch.data.stats import NORM_STATS_FILE, resolve_norm_stats
 from image_classification_tpu_torch.train.loop import FoldResult, train_fold
 
 logger = logging.getLogger("ic_tpu_torch")
@@ -83,14 +88,7 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
                  device: str | torch.device = "cuda") -> list[FoldResult]:
     if cfg.fold_parallel:
         raise NotImplementedError("fold_parallel: training the folds side by side "
-                                  "is not ported (ROADMAP queue A, item 14)")
-    if cfg.split_mode == "holdout":
-        raise NotImplementedError("split_mode=holdout needs sklearn's "
-                                  "train_test_split, which is not ported "
-                                  "(ROADMAP queue A, left out of the port)")
-    if cfg.norm_stats == "dataset":
-        raise NotImplementedError("norm_stats=dataset is not ported yet "
-                                  "(ROADMAP queue A, left out of the port)")
+                                  "is not ported (ROADMAP queue A, item 8)")
     if cfg.prefetch_depth > 0:
         logger.warning("prefetch_depth=%d: the port's loader has no background "
                        "prefetch; it assembles each batch in the step's thread "
@@ -106,10 +104,25 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
                        missing[:10])
     if source is None:
         source = build_source(cfg, manifest, cfg.train_dir)
+    # the stats ship with the checkpoints, so `cli predict` normalizes as
+    # training did without the train set
+    cfg = resolve_norm_stats(cfg, source, save_to=os.path.join(cfg.model_save_path,
+                                                               NORM_STATS_FILE))
     results: list[FoldResult] = []
-    splits = stratified_kfold(manifest.labels, cfg.num_folds, seed=cfg.fold_seed)
+    if cfg.split_mode == "holdout":
+        # every class oversampled to 2 members so that it can be stratified,
+        # then one split, trained as fold 1
+        base = oversample_minority(manifest.labels, 2, seed=cfg.seed)
+        tr, va = stratified_split(manifest.labels[base], cfg.val_fraction, seed=cfg.seed)
+        splits: Any = [(base[tr], base[va])]
+        n_total = 1
+        logger.info("holdout split: train %d / val %d (val_fraction %.2f)",
+                    len(tr), len(va), cfg.val_fraction)
+    else:
+        splits = stratified_kfold(manifest.labels, cfg.num_folds, seed=cfg.fold_seed)
+        n_total = cfg.num_folds
     for fold, (train_idx, val_idx) in enumerate(splits, start=1):
-        logger.info("fold %d/%d: train %d / val %d", fold, cfg.num_folds,
+        logger.info("fold %d/%d: train %d / val %d", fold, n_total,
                     len(train_idx), len(val_idx))
         try:
             train_loader, val_loader, train_labels = make_fold_loaders(
@@ -132,4 +145,4 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
 def train_ensemble(cfg, *args, **kwargs):
     raise NotImplementedError("train_ensemble: the multi-architecture ensemble "
                               "needs ViT, which is not ported (ROADMAP queue A, "
-                              "item 12)")
+                              "item 6)")

@@ -148,7 +148,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
     accuracy) and the per-epoch history."""
     if cfg.use_swa:
         raise NotImplementedError("use_swa: SWA and its batch-norm update step "
-                                  "are not ported (ROADMAP queue A, item 12)")
+                                  "are not ported (ROADMAP queue A, item 6)")
     device = train_loader.device
     steps_per_epoch = len(train_loader)
     bundle = create_model(cfg, model_name, generator=torch.Generator().manual_seed(

@@ -38,6 +38,7 @@ from image_classification_tpu_torch.aug.pipeline import (
 )
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import smoothed_cross_entropy
+from image_classification_tpu_torch.train.optim import trainable_indices
 from image_classification_tpu_torch.train.train_state import TrainState
 
 
@@ -110,16 +111,22 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
     'image' and 'label' int (B,) on the model's device: uint8 (B, h, w, 3)
     with ``aug_enabled=true``, float (B, H, W, 3) already preprocessed with
     ``aug_enabled=false``; ``tx`` is ``train/optim.py:build_optimizer``'s
-    result."""
+    result. With ``freeze_stages > 0`` only the trainable parameters are
+    differentiated and updated."""
     augment = make_batch_augment(cfg)
+    params = list(bundle.module.parameters())
+    trainable = trainable_indices([n for n, _ in bundle.module.named_parameters()],
+                                  tx.freeze_stages)
+    if trainable is not None:
+        params = [params[i] for i in trainable]
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None,
                    draws: StepDraws | None = None):
         images, targets = augment(batch, generator, draws)
         grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
-                                          images, targets, batch["label"])
-        gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg)
+                                          images, targets, batch["label"], params)
+        gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg, trainable=trainable)
         if gnorm is not None:
             metrics["grad_norm"] = gnorm
         state.step += 1
@@ -130,9 +137,12 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
 
 def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
                      images: torch.Tensor, targets: torch.Tensor,
-                     labels: torch.Tensor | None = None):
+                     labels: torch.Tensor | None = None,
+                     params: list[torch.Tensor] | None = None):
     """The gradient half of the train step: ``(grads, metrics)``, the
-    gradients aligned with ``model.parameters()`` and reduced over the
+    gradients aligned with ``params`` (default ``model.parameters()``;
+    autograd runs no part of the backward that only other parameters
+    need) and reduced over the
     ``cfg.gradient_accumulation_steps`` strided microbatches. ``targets``
     are what the loss takes (integer labels, or soft (B, classes) ones after
     a mix); the accuracy counts argmax hits against the integer ``labels``
@@ -144,7 +154,8 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
     if images.shape[0] % accum:
         raise ValueError(f"batch {images.shape[0]} is not divisible by "
                          f"gradient_accumulation_steps={accum}")
-    params = list(model.parameters())
+    if params is None:
+        params = list(model.parameters())
     grads = None
     losses, correct = [], []
     for k in range(accum):

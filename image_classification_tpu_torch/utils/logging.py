@@ -1,5 +1,6 @@
 """Logging bootstrap, port of ``image_classification_tpu/utils/logging.py``:
-the ``ic_tpu`` logger to stdout and, optionally, a file; idempotent."""
+the ``ic_tpu`` logger to stdout and, optionally, a file; idempotent unless
+``force`` (which closes the handlers it replaces)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ def setup_logging(log_file: str | None = None, level: int = logging.INFO,
     if _CONFIGURED and not force:
         return logger
     logger.setLevel(level)
+    for h in logger.handlers:
+        h.close()
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
     sh = logging.StreamHandler(sys.stdout)

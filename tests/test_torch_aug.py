@@ -204,8 +204,11 @@ def jax_mix_draws(key, shape, c) -> mix.MixDraws:
 
 
 def jax_aug_draws(key, shape, jaug) -> AugDraws:
-    """train_augment's draws: the pipeline's tags (pipeline.py:152-156)."""
+    """train_augment's draws: the pipeline's tags (pipeline.py:152-160)."""
+    from test_torch_randaug import jax_randaug_draws
+
     out_shape = (shape[0], *jaug["image_size"], shape[-1])
+    ra = jaug.get("randaugment")
     return AugDraws(
         jax_geometry_draws(prng.fold_name(key, "geometry"), shape[0],
                            jaug["image_size"], jaug["geometry"]),
@@ -214,7 +217,9 @@ def jax_aug_draws(key, shape, jaug) -> AugDraws:
         jax_jitter_draws(prng.fold_name(key, "jitter"), shape[0], jaug["jitter"]),
         jax_color_shift_draws(prng.fold_name(key, "color_shift"), shape[0],
                               jaug["color_shift"]),
-        jax_erase_draws(prng.fold_name(key, "erase"), out_shape, jaug["erase"]))
+        jax_erase_draws(prng.fold_name(key, "erase"), out_shape, jaug["erase"]),
+        None if ra is None else jax_randaug_draws(prng.fold_name(key, "randaug"),
+                                                  shape[0], ra))
 
 
 def jax_mix_cfg(jcfg) -> jmix.MixCfg:

@@ -330,13 +330,13 @@ def test_optimizer_refuses_what_is_not_ported():
     plateau = build_optimizer(cfg.replace(schedule="plateau"), 1e-3)
     assert plateau.schedule(7) == 1e-3
     assert set_learning_rate(plateau, 2.5e-4).schedule(7) == 2.5e-4
-    with pytest.raises(NotImplementedError):
-        build_optimizer(cfg.replace(freeze_stages=1), 1e-3)
+    # freezing is ported: the frozen stages travel with the hyperparameters
+    frozen = set_learning_rate(build_optimizer(cfg.replace(freeze_stages=1), 1e-3), 5e-4)
+    assert frozen.freeze_stages == 1 and frozen.schedule(7) == 5e-4
     with pytest.raises(ValueError):
         build_optimizer(cfg.replace(optimizer="sgd"), 1e-3)
     with pytest.raises(NotImplementedError):
-        make_train_step(None, cfg.replace(aug_enabled=True, use_randaugment=True),
-                        None, None)
+        create_model(cfg.replace(model_name="vit_tiny_patch16_224"))
     with pytest.raises(NotImplementedError):
         create_model(cfg.replace(model_name="convnext_atto", drop_path_rate=0.1))
     assert build_optimizer(cfg.replace(schedule="none"), 2e-3).schedule(7) == 2e-3
