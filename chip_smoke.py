@@ -1,4 +1,12 @@
-"""On-card smoke test of the PyTorch port. It builds the port's kernels and
+"""On-card smoke test of the PyTorch port.
+
+The H100 host this script has run on, as probed (g++, ``#include
+<jpeglib.h>``, ``ldconfig -p``, ``$CUDA_HOME/include/nvjpeg.h``): g++ 13.3,
+no libjpeg header or library, the CUDA toolkit's nvJPEG 12.4. So there the
+port's host JPEG library (``data/native.py``) is its nvJPEG build; the data
+phase prints the probe again and the library it built.
+
+It builds the port's kernels and
 holds each one against its plain PyTorch version on the card (at
 ConvNeXt-B's shapes: forward kernels at the predict slice's, backward
 kernels at the train step's; at ConvNeXt-L's train shapes, forward and
@@ -31,7 +39,16 @@ versions in f32:
   predict`` and ``--best-fold``; the step alone; then ``cli train`` with a
   holdout split, dataset channel stats and the stem and stage 0 frozen,
   ``cli predict`` from its ``norm_stats.json``, and one frozen step against
-  the f32 host step.
+  the f32 host step;
+* data: the host JPEG library against the committed JPEG fixture (exact
+  with libjpeg-turbo, within a measured bound with nvJPEG), a hard synthetic
+  set of 2,048 train and 512 test images written as JPEGs and its decode
+  rate, V2 ``cli train`` (2 folds x 1 epoch) straight from the JPEGs
+  decoded in memory and then through the decode cache (whose bytes must be
+  the in-memory decode's, and which is then reused without the JPEGs),
+  ``cli predict``, and V4 ConvNeXt-B ``cli train`` (one holdout fold, 1
+  epoch) at ``prefetch_depth`` 0 and 2, with the loop's images/s and duty
+  cycle.
 
 Every depthwise backward runs as the forward stencil on g with the flipped
 filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 forward
@@ -65,8 +82,11 @@ from image_classification_tpu_torch.core.config import load_config
 from image_classification_tpu_torch.data import (
     ArraySource,
     DataLoader,
+    ImageSource,
     Manifest,
     SequentialSampler,
+    make_hard_synthetic_dataset,
+    native,
 )
 from image_classification_tpu_torch.data.source import decode_cache_key, save_decode_cache
 from image_classification_tpu_torch.data.splits import (
@@ -307,6 +327,26 @@ RA_F32_MEAN_GREY = 0.01
 RA_F32_SHARE_BEYOND_1 = 2e-4
 RA_BF16_MEAN_GREY = 1.5
 RA_BF16_SHARE_BEYOND_40 = 1e-3
+# The data edge: a hard synthetic set (data/synthetic_hard.py, seed 0, the
+# default task) written as JPEGs at 60x80, 2,048 train and 512 test images,
+# decoded by the host JPEG library (data/native.py) with DECODE_THREADS.
+DATA_TRAIN, DATA_TEST = 2048, 512
+DECODE_THREADS = 16
+# The JPEG fixture's decode against its committed bytes (libjpeg-turbo's,
+# tests/test_torch_data.py). With libjpeg-turbo they must be equal. With the
+# nvJPEG build only the IDCT's rounding differs (the chroma upsampling and
+# colour conversion are libjpeg's, csrc/jpeg_color.h): its first runs on an
+# H100 measured max 2 grey levels and a mean of at most 0.036 an image on
+# the fixture, and max 3 on random 60x80 content against PIL's libjpeg-turbo
+# (one rounding step of Y plus one of Cb through its 1.772 factor). The
+# bounds: max 3, mean 0.1.
+FIXTURE_MAX_GREY = 3
+FIXTURE_MEAN_GREY = 0.1
+# V2 from JPEG files: 2 folds x 1 epoch, first decoding in memory, then
+# through the decode cache. V4 (ConvNeXt-B, deep supervision, 260x260): one
+# holdout fold of half the set, 1 epoch, at prefetch_depth 0 and then 2.
+DATA_V2 = ["num_folds=2", "epochs=1"]
+DATA_V4 = ["split_mode=holdout", "val_fraction=0.5", "epochs=1", "save_state_every=0"]
 
 
 class SmokeFailure(RuntimeError):
@@ -1672,6 +1712,204 @@ def _run_v2(tmp: str) -> dict:
             "launches_per_step": {k: v / run["steps"] for k, v in launches.items()},
             "step": step, "frozen_step_check": check}
 
+# ---------------------------------------------------------------- data edge
+def host_probe() -> dict:
+    """What the host offers to build a JPEG library on."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True)
+    ld = (subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+          if shutil.which("ldconfig") else "")
+    return {"g++": gxx.stdout.splitlines()[0] if gxx.returncode == 0 else None,
+            "jpeglib.h": native.has_header("jpeglib.h"),
+            "ldconfig jpeg": [line.split(" => ")[0].strip() for line in ld.splitlines()
+                              if "jpeg" in line.lower()],
+            "nvjpeg.h": bool(CUDA_HOME) and os.path.exists(
+                os.path.join(CUDA_HOME, "include", "nvjpeg.h"))}
+
+
+def check_fixture(version: str) -> dict:
+    """The committed JPEG fixture through ``ImageSource``: its bytes exactly
+    with libjpeg-turbo, else within the nvJPEG bounds; the corrupt file and
+    the missing id take the black fallback; the PNG raises."""
+    fixture = os.path.join(os.path.dirname(native.__file__), "fixtures", "jpeg")
+    expected = np.load(os.path.join(fixture, "expected.npz"))
+    ids = [str(i) for i in expected["ids"]]
+    got = ImageSource(fixture, ids, NATIVE).get_batch(np.arange(len(ids)))
+    diff = np.abs(got.astype(np.int32) - expected["images"].astype(np.int32))
+    means = diff.reshape(len(ids), -1).mean(axis=1)
+    stats = {"max": int(diff.max()), "mean_by_image": [round(float(m), 4) for m in means]}
+    print(f"data: JPEG fixture ({len(ids)} ids) decoded by {version} against its committed "
+          f"libjpeg-turbo bytes: max |d| {stats['max']} grey levels, mean by image "
+          f"{stats['mean_by_image']}", flush=True)
+    if "libjpeg-turbo" in version:
+        require(stats["max"] == 0, f"libjpeg-turbo decode differs from the fixture: {stats}")
+    else:
+        require(stats["max"] <= FIXTURE_MAX_GREY and means.max() <= FIXTURE_MEAN_GREY,
+                f"fixture decode beyond max {FIXTURE_MAX_GREY} / mean {FIXTURE_MEAN_GREY}: "
+                f"{stats}")
+    for id_ in ("corrupt", "missing"):
+        require(not got[ids.index(id_)].any(), f"{id_}: not the black fallback")
+    raised = False
+    try:
+        ImageSource(fixture, [*ids, "pic"], NATIVE)
+    except NotImplementedError:
+        raised = True
+    require(raised, "a PNG did not raise NotImplementedError")
+    return stats
+
+
+def decode_rate(paths: list[str]) -> float:
+    """Images/s of ``native.decode_batch`` at DECODE_THREADS, files in the
+    page cache: the best of 3 passes after a warm one."""
+    out = np.empty((len(paths), *NATIVE, 3), np.uint8)
+    require(bool(native.decode_batch(paths, out, DECODE_THREADS).all()), "a JPEG failed")
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.decode_batch(paths, out, DECODE_THREADS)
+        best = min(best, time.perf_counter() - t0)
+    return len(paths) / best
+
+
+def _data_train(config: str, over: list[str], n_test: int) -> tuple[object, dict, dict]:
+    """``cli train`` of ``config`` with ``over``, the counts from 0 right
+    before; returns the config, the launches and the run's figures."""
+    cfg = load_config(config, over)
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["train", "--config", config, *over])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    with open(os.path.join(cfg.output_dir, "train.log")) as f:
+        log = f.read()
+    require("failed; continuing" not in log, "a fold failed:\n" + log[-4000:])
+    with open(os.path.join(cfg.output_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    require(all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in records),
+            "non-finite loss in metrics.jsonl")
+    sub = read_submission(cfg.submission_path)
+    require(sub[0] == "id,target" and len(sub) == n_test + 1,
+            f"submission has {len(sub)} lines, header {sub[:1]}")
+    return cfg, launches, {"train_s": train_s, "records": records, "submission": sub,
+                           "steps": sum(r["steps"] for r in records)}
+
+
+def _forwards(cfg, labels: np.ndarray, n_test: int) -> int:
+    """Forwards without gradient of one ``cli train``: per epoch one a
+    validation batch, then one a test batch for each fold model."""
+    if cfg.split_mode == "holdout":
+        base = oversample_minority(labels, 2, seed=cfg.seed)
+        val_sizes = [len(stratified_split(labels[base], cfg.val_fraction, seed=cfg.seed)[1])]
+    else:
+        val_sizes = [len(v) for _, v in stratified_kfold(labels, cfg.num_folds, cfg.fold_seed)]
+    val_batch = cfg.batch_size * cfg.val_batch_multiplier
+    test_batches = -(-n_test // (cfg.batch_size * cfg.infer_batch_multiplier))
+    return (cfg.epochs * sum(-(-n // val_batch) for n in val_sizes)
+            + len(val_sizes) * test_batches)
+
+
+def run_data() -> dict:
+    """Phase 7: the data edge. The host probe and the library, the JPEG
+    fixture, a hard set rendered and written as JPEGs, the decode rate; then
+    V2 ``cli train`` straight from the JPEGs in memory and through the
+    decode cache (whose bytes must be the in-memory decode's, and which is
+    then reused), ``cli predict``; then V4 ConvNeXt-B ``cli train`` at
+    ``prefetch_depth`` 0 and 2."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        return _run_data(tmp)
+
+
+def _run_data(tmp: str) -> dict:
+    probe = host_probe()
+    so, build_s = native.build()
+    version = native.lib_version()
+    print(f"data: host probe {probe}; JPEG library: the {native.recipe().name} build, "
+          f"{version}, built in {build_s:.2f} s -> {os.path.relpath(so, REPO)}", flush=True)
+    out = {"probe": probe, "library": version, "fixture": check_fixture(version)}
+
+    root = os.path.join(tmp, "hard")
+    t0 = time.perf_counter()
+    made = make_hard_synthetic_dataset(root, n_train=DATA_TRAIN, n_test=DATA_TEST,
+                                       native_size=NATIVE, seed=0)
+    out["write_s"] = time.perf_counter() - t0
+    out["render_s"], out["encode_s"] = made["seconds"]["render"], made["seconds"]["encode"]
+    train_ids = Manifest.from_csv(made["train_csv"]).ids
+    paths = [os.path.join(made["train_dir"], f"{i}.jpg") for i in train_ids]
+    out["decode_images_per_s"] = decode_rate(paths)
+    print(f"data: hard set of {DATA_TRAIN} train + {DATA_TEST} test JPEGs at 60x80 in "
+          f"{out['write_s']:.3f} s (render {out['render_s']:.3f} s, encode "
+          f"{out['encode_s']:.3f} s); decode {out['decode_images_per_s']:.1f} images/s "
+          f"at {DECODE_THREADS} threads", flush=True)
+    labels = np.asarray(made["train_labels"])
+    data = [f"train_csv={made['train_csv']}", f"train_dir={made['train_dir']}",
+            f"test_csv={made['test_csv']}", f"test_dir={made['test_dir']}",
+            f"cache_dir={tmp}/cache"]
+
+    def paths_of(tag):
+        return [f"model_save_path={tmp}/{tag}/models", f"output_dir={tmp}/{tag}/out",
+                f"submission_path={tmp}/{tag}/submission.csv"]
+
+    # V2 from the JPEGs, decoded in memory, then through the decode cache:
+    # the main path of this phase, through the user's entry points.
+    runs = {}
+    for tag, cached in (("v2_memory", "false"), ("v2_cache", "true")):
+        over = [*data, *paths_of(tag), *V2_OVERRIDES, *DATA_V2, f"use_decode_cache={cached}"]
+        cfg, launches, run = _data_train(V2_CONFIG, over, DATA_TEST)
+        want = expected_launches(cfg, run["steps"], _forwards(cfg, labels, DATA_TEST))
+        require(launches == want, f"{tag}: launches {launches}, expected {want}")
+        runs[tag] = run
+        for r in run["records"]:
+            print(f"  {tag} fold {r['fold']}: train loss {r['train_loss']:.4f} val acc "
+                  f"{r['val_acc']:.4f}; {r['images_per_sec']} images/s, duty cycle "
+                  f"{r['duty_cycle']}", flush=True)
+        print(f"data: V2 cli train ({tag}): {run['train_s']:.3f} s, {run['steps']} steps, "
+              f"launches as expected {launches}", flush=True)
+    key = decode_cache_key(made["train_dir"], train_ids, NATIVE)
+    cache_file = os.path.join(tmp, "cache", f"imgs_{key}.u8")
+    memory = ImageSource(made["train_dir"], train_ids, NATIVE).images
+    cached_bytes = np.fromfile(cache_file, np.uint8).reshape(memory.shape)
+    require(np.array_equal(cached_bytes, memory),
+            "the decode cache's bytes differ from the in-memory decode")
+    os.rename(made["train_dir"], made["train_dir"] + ".away")   # no decoding from here
+    reused = ImageSource(made["train_dir"], train_ids, NATIVE, cache_dir=f"{tmp}/cache")
+    os.rename(made["train_dir"] + ".away", made["train_dir"])
+    require(isinstance(reused.images, np.memmap) and np.array_equal(reused.images, memory),
+            "the decode cache was not reused")
+    same = runs["v2_memory"]["submission"][1:] == runs["v2_cache"]["submission"][1:]
+    over = [*data, *paths_of("v2_cache"), *V2_OVERRIDES, *DATA_V2]
+    again = _v2_predict(over, f"{tmp}/v2_cache/predict.csv", "--folds", "1,2")
+    require(again[0] == "id,predict" and again[1:] == runs["v2_cache"]["submission"][1:],
+            "V2 cli predict from the JPEGs differs from cli train's submission")
+    print(f"data: the decode cache ({os.path.getsize(cache_file)} bytes) equals the in-memory "
+          f"decode and is reused without the JPEGs; cli predict reproduces the "
+          f"submission; the in-memory and the cached runs' submissions are "
+          f"{'equal' if same else 'NOT equal'}", flush=True)
+    out["v2_train_s"] = {k: v["train_s"] for k, v in runs.items()}
+
+    # V4 ConvNeXt-B from the same JPEGs (the cache reused), prefetch 0 then 2
+    v4 = os.path.join(REPO, "configs", "v4.json")
+    out["v4_loop"] = {}
+    for depth in (0, 2):
+        tag = f"v4_prefetch{depth}"
+        over = [*data, *paths_of(tag), *DATA_V4, f"prefetch_depth={depth}"]
+        cfg, launches, run = _data_train(v4, over, DATA_TEST)
+        require(cfg.model_name == MODEL and cfg.use_deep_supervision,
+                "configs/v4.json no longer trains ConvNeXt-B with deep supervision")
+        want = expected_launches(cfg, run["steps"], _forwards(cfg, labels, DATA_TEST))
+        require(launches == want, f"{tag}: launches {launches}, expected {want}")
+        r = run["records"][0]
+        out["v4_loop"][depth] = {"images_per_s": r["images_per_sec"],
+                                 "duty_cycle": r["duty_cycle"], "steps": r["steps"],
+                                 "wall_s": r["wall_time_s"], "train_s": run["train_s"]}
+        print(f"data: V4 {MODEL} cli train, prefetch_depth={depth}: loop {r['images_per_sec']} "
+              f"images/s, duty cycle {r['duty_cycle']}, {r['steps']} steps in "
+              f"{r['wall_time_s']} s; val acc {r['val_acc']:.4f}; cli train "
+              f"{run['train_s']:.3f} s", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1722,6 +1960,13 @@ def main() -> int:
           f"{v2['step']['peak_mem_gib']} GiB; RandAugment card vs host {v2_aug}; "
           f"freeze_stages=1 step against the f32 host step "
           f"{v2['frozen_step_check']}; on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    data = run_data()
+    print(f"data edge ({data['library']}): fixture max |d| {data['fixture']['max']}; "
+          f"{DATA_TRAIN} + {DATA_TEST} hard JPEGs written in {data['write_s']:.3f} s; "
+          f"decode {data['decode_images_per_s']:.1f} images/s at {DECODE_THREADS} threads; "
+          f"V2 cli train in memory / through the cache {data['v2_train_s']}; V4 loop by "
+          f"prefetch_depth {data['v4_loop']}; on {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

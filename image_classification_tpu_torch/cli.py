@@ -27,9 +27,10 @@ stats (``data/stats.py``): ``train`` resolves them once and saves
 ``{model_save_path}/norm_stats.json``, and its submission uses them too;
 ``predict`` reads that file, or else computes them from the train set.
 
-Images come from the decoded-image cache under ``cache_dir`` (see
-``data/source.py:load_decode_cache``). The device defaults to ``cuda``;
-``--device cpu`` runs the kernels' plain versions.
+Images are the JPEG files under ``train_dir`` and ``test_dir``, decoded
+once by ``data/source.py:ImageSource`` into the decode cache under
+``cache_dir`` (or in memory with ``use_decode_cache=false``). The device
+defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations

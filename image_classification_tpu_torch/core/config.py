@@ -12,12 +12,11 @@ only so that presets still load: ``dwconv_impl``, ``gelu_impl``, ``mlp_2d``,
 ``pin_layout``, ``downsample_impl``, ``block_mlp_impl`` and ``warp_impl``. On
 CUDA the 7x7 depthwise conv, the fused block tail (C <= 512) and the exact
 GELU always run their hand-written kernels (``image_classification_tpu_torch/
-ops``). ``prefetch_depth`` is accepted and changes no result: the port's
-loader assembles each batch in the step's thread, and ``cli train`` logs a
-warning when the key is above 0 (ROADMAP queue A, item 4). ``debug_nans``
-makes the fold loop check each step's loss and gradient norm;
-``use_decode_cache=false`` raises. The comments below are the JAX package's
-and quote TPU measurements.
+ops``). ``prefetch_depth`` sets how many batches each loader assembles
+ahead on its background thread; ``use_decode_cache`` whether the decoded
+images persist in ``cache_dir`` or are decoded in memory for the run.
+``debug_nans`` makes the fold loop check each step's loss and gradient norm.
+The comments below are the JAX package's and quote TPU measurements.
 """
 
 from __future__ import annotations

@@ -6,15 +6,19 @@ the manifest; all of them by default) in the order the sampler gives for the
 current epoch (:meth:`DataLoader.set_epoch`). With ``drop_last`` a short last
 batch is dropped (the train loader); otherwise, with ``pad_last``, it is
 padded with zero images (label 0, index -1) to the full batch size and
-``mask`` marks the real rows. For a CUDA ``device`` (the default) the images,
-labels and mask go through pinned host memory and a ``non_blocking`` copy on
-the current stream, so no batch waits for the card. Batches are assembled on
-the calling thread; the JAX package's background prefetch and its HBM image
-cache (a workaround for a remote TPU's slow host link) are not ported.
+``mask`` marks the real rows. With ``prefetch_depth > 0`` (2 by default, as in
+the JAX package) a daemon thread assembles the batches that many ahead: the
+fancy-index, the padding and, for a CUDA ``device``, ``pin_memory()``; an
+exception there is raised in the consumer. The consumer's thread copies
+each batch to the device (``non_blocking`` on its current stream), so no
+batch waits for the card. The JAX package's HBM image cache (a workaround
+for a remote TPU's slow host link) is not ported.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Any, Iterator
 
 import numpy as np
@@ -32,7 +36,8 @@ class DataLoader:
     def __init__(self, source: Any, manifest: Manifest,
                  batch_size: int = 32, sampler: Any = None,
                  pad_last: bool = True, device: str | torch.device = "cuda",
-                 indices: np.ndarray | None = None, drop_last: bool = False):
+                 indices: np.ndarray | None = None, drop_last: bool = False,
+                 prefetch_depth: int = 2):
         self.source = source
         self.manifest = manifest
         self.indices = (np.asarray(indices) if indices is not None
@@ -42,6 +47,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.pad_last = pad_last and not drop_last
         self.device = torch.device(device)
+        self.prefetch_depth = prefetch_depth
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -58,7 +64,8 @@ class DataLoader:
         for start in range(0, stop, self.batch_size):
             yield self.indices[order[start : start + self.batch_size]]
 
-    def __iter__(self) -> Iterator[dict[str, Any]]:
+    def _host_batches(self) -> Iterator[dict[str, Any]]:
+        """Each batch as host tensors, pinned for a CUDA device."""
         for idx in self._selections():
             images = self.source.get_batch(idx)
             labels = self.manifest.labels[idx]
@@ -70,17 +77,61 @@ class DataLoader:
                 labels = np.concatenate([labels, np.zeros(pad, labels.dtype)])
                 mask = np.concatenate([mask, np.zeros(pad, bool)])
                 idx = np.concatenate([idx, np.full(pad, -1)])
-            yield {"image": self._to_device(images),
-                   "label": self._to_device(labels), "mask": self._to_device(mask),
-                   "index": idx.astype(np.int64)}
+            yield {"image": self._host(images), "label": self._host(labels),
+                   "mask": self._host(mask), "index": idx.astype(np.int64)}
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        it = self._host_batches()
+        if self.prefetch_depth > 0:
+            it = _background(it, self.prefetch_depth)
+        for batch in it:
+            yield {k: v if k == "index" else v.to(self.device, non_blocking=True)
+                   for k, v in batch.items()}
+
+    def _host(self, array: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return t.pin_memory() if self.device.type == "cuda" else t
 
     def batch_ids(self) -> Iterator[np.ndarray]:
         """Ids per batch in epoch order (unpadded)."""
         for idx in self._selections():
             yield self.manifest.ids[idx]
+
+
+def _background(it: Iterator, depth: int) -> Iterator:
+    """Run ``it`` on a daemon thread, ``depth`` items ahead; an exception
+    raised there is raised here. Closing this generator early stops the
+    thread at its next item."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker() -> None:
+        try:
+            for item in it:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:  # re-raised in the consumer below
+            put(e)
+
+    threading.Thread(target=worker, daemon=True, name="DataLoader-prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()

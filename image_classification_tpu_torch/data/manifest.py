@@ -14,6 +14,7 @@ import csv
 import os
 import re
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 
@@ -76,6 +77,16 @@ class Manifest:
 
     def subset(self, indices: np.ndarray) -> "Manifest":
         return Manifest(self.ids[indices], self.labels[indices], self.is_test)
+
+
+def write_csv(path: str, columns: dict[str, Sequence]) -> None:
+    """Columns of equal length as a CSV, byte-identical to pandas'
+    ``DataFrame(columns).to_csv(path, index=False)`` for text and integer
+    values (minimal quoting, ``os.linesep``)."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator=os.linesep)
+        writer.writerow(list(columns))
+        writer.writerows(zip(*columns.values()))
 
 
 def class_distribution(labels: np.ndarray, num_classes: int) -> np.ndarray:

@@ -8,14 +8,13 @@ written as ``id,predict`` or ``id,target``.
 
 from __future__ import annotations
 
-import csv
 import logging
-import os
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from image_classification_tpu_torch.data.manifest import write_csv
 from image_classification_tpu_torch.infer.tta import get_tta
 from image_classification_tpu_torch.train.step import (
     make_eval_views,
@@ -89,9 +88,5 @@ def write_submission(ids: Sequence[str], preds: np.ndarray, path: str,
                      column: str = "predict") -> None:
     """``id,<column>`` CSV, byte-identical to pandas'
     ``DataFrame.to_csv(index=False)`` (minimal quoting, ``os.linesep``)."""
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f, lineterminator=os.linesep)
-        writer.writerow(["id", column])
-        for id_, p in zip(ids, np.asarray(preds, dtype=int)):
-            writer.writerow([id_, int(p)])
+    write_csv(path, {"id": list(ids), column: np.asarray(preds, dtype=int).tolist()})
     logger.info("wrote %d predictions -> %s", len(ids), path)

@@ -1,0 +1,161 @@
+"""The V4 EMA-off rung of the hard ladder (``RESULTS.md``, ablations)
+through the port's ``cli train``, from JPEG files the port writes.
+
+    PYTHONPATH=. python image_classification_tpu_torch/tools/run_hard_rung.py \
+        [--root DIR] [--budget-s SECONDS] [--resume] [key=value ...]
+
+Renders the seed-0 hard set (``data/synthetic_hard.py``: 35,551 train and
+2,000 test images at 60x80, the default ``HardTaskSpec``) as q90 JPEGs
+under ``--root`` once (a marker file records a complete set), then runs
+``cli train`` with the JAX package's configuration of the rung
+(``tools/run_hard_ladder.py`` stage ``abl_noema`` through
+``tools/train_demo_tpu.py hard=true``): ``Config()`` defaults with
+``model_name=convnext_base epochs=30 patience=10 split_mode=holdout
+val_fraction=0.5 use_ema=false save_state_every=0``; ``key=value``
+arguments are appended to those. As ``metrics.jsonl`` grows it prints each
+epoch's val accuracy beside the JAX package's
+(``docs/results/hard_ladder_metrics.jsonl`` lines 74-103, one a epoch, 555
+steps each), and at the end one JSON line with both curves and the best of
+each over the epochs run.
+
+``--budget-s`` stops ``cli train`` once the next epoch would end past that
+many seconds from the start; the schedule keeps its 30-epoch horizon, so the
+epochs run are the first epochs of the full rung. ``--resume`` passes
+``--resume`` to ``cli train``, which continues from
+``train_state_fold1.pt``; that needs ``save_state_every=1`` in the run that
+wrote it (ConvNeXt-B's train state is ~1 GB). Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, REPO)
+
+N_TRAIN, N_TEST = 35551, 2000
+RUNG = ["model_name=convnext_base", "epochs=30", "patience=10", "split_mode=holdout",
+        "val_fraction=0.5", "use_ema=false", "save_state_every=0"]
+JAX_METRICS = os.path.join(REPO, "docs", "results", "hard_ladder_metrics.jsonl")
+JAX_LINES = (74, 103)   # the abl_noema rung, epochs 0-29
+
+
+def jax_curve() -> list[dict]:
+    with open(JAX_METRICS) as f:
+        lines = f.read().splitlines()[JAX_LINES[0] - 1:JAX_LINES[1]]
+    curve = [json.loads(line) for line in lines]
+    if [r["epoch"] for r in curve] != list(range(30)):
+        raise ValueError(f"{JAX_METRICS}:{JAX_LINES}: not one rung's 30 epochs")
+    return curve
+
+
+def render(root: str) -> dict:
+    from image_classification_tpu_torch.data import make_hard_synthetic_dataset
+
+    marker = os.path.join(root, f".done_{N_TRAIN}")
+    if os.path.exists(marker):
+        return {"render_s": 0.0, "encode_s": 0.0}
+    made = make_hard_synthetic_dataset(root, n_train=N_TRAIN, n_test=N_TEST,
+                                       native_size=(60, 80), seed=0)
+    with open(marker, "w") as f:
+        f.write("ok")
+    return {"render_s": made["seconds"]["render"], "encode_s": made["seconds"]["encode"]}
+
+
+def read_records(path: str) -> list[dict]:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=os.path.join(REPO, "demo_data_hard_torch"))
+    p.add_argument("--budget-s", type=float, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("overrides", nargs="*")
+    args = p.parse_args()
+    t_start = time.perf_counter()
+    root = os.path.abspath(args.root)
+    reference = jax_curve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    made = render(root)
+    print(f"hard set under {root}: render {made['render_s']:.1f} s, encode "
+          f"{made['encode_s']:.1f} s; on {smi}", flush=True)
+    out_dir = os.path.join(root, "out")
+    over = [*RUNG, f"train_dir={root}/train", f"test_dir={root}/test",
+            f"train_csv={root}/train.csv", f"test_csv={root}/sample_submission.csv",
+            f"submission_path={root}/submission.csv", f"model_save_path={root}/models",
+            f"output_dir={out_dir}", f"cache_dir={root}/.cache", *args.overrides]
+    metrics = os.path.join(out_dir, "metrics.jsonl")
+    seen = len(read_records(metrics)) if args.resume else 0
+    if not args.resume and os.path.exists(metrics):
+        os.remove(metrics)
+    cmd = [sys.executable, "-m", "image_classification_tpu_torch.cli", "train",
+           *(["--resume"] if args.resume else []), *over]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [REPO, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env)
+    rows, stopped = [], False
+    last = time.perf_counter()
+    try:
+        while True:
+            done = proc.poll() is not None
+            records = read_records(metrics)
+            for r in records[seen:]:
+                now = time.perf_counter()
+                ref = reference[r["epoch"]] if r["epoch"] < len(reference) else {}
+                rows.append({"epoch": r["epoch"], "val_acc": r["val_acc"],
+                             "jax_val_acc": ref.get("val_acc"), "train_loss": r["train_loss"],
+                             "val_loss": r["val_loss"], "images_per_sec": r["images_per_sec"],
+                             "duty_cycle": r["duty_cycle"], "epoch_s": round(now - last, 1)})
+                print(f"epoch {r['epoch']:2d}: val acc {r['val_acc']:.4f} (JAX "
+                      f"{ref.get('val_acc', float('nan')):.4f}), train loss "
+                      f"{r['train_loss']:.4f}, {r['images_per_sec']} images/s, duty cycle "
+                      f"{r['duty_cycle']}, {now - last:.1f} s", flush=True)
+                last = now
+            seen = len(records)
+            if done:
+                break
+            if args.budget_s is not None and len(rows) >= 2:
+                epoch_s = max(row["epoch_s"] for row in rows[1:])
+                if time.perf_counter() - t_start + epoch_s > args.budget_s:
+                    print(f"budget: the next epoch (~{epoch_s:.0f} s) would end past "
+                          f"{args.budget_s:.0f} s; stopping cli train", flush=True)
+                    stopped = True
+                    break
+            time.sleep(5)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if proc.returncode != 0 and not stopped:
+        print(f"cli train exited with {proc.returncode}", flush=True)
+        return 1
+    epochs = [row["epoch"] for row in rows]
+    summary = {
+        "rung": "abl_noema (V4, EMA off, 50% holdout)", "device": smi,
+        "epochs_run": len(rows), "stopped_by_budget": stopped,
+        "best_val_acc": max((row["val_acc"] for row in rows), default=None),
+        "jax_best_val_acc_same_epochs": max(
+            (reference[e]["val_acc"] for e in epochs if e < len(reference)), default=None),
+        "jax_best_val_acc_30_epochs": max(r["val_acc"] for r in reference),
+        "seconds": round(time.perf_counter() - t_start, 1), **made, "epochs": rows}
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

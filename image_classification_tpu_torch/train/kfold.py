@@ -2,19 +2,20 @@
 ``image_classification_tpu/train/kfold.py``: read the manifest, log the class
 distribution, resolve ``norm_stats=dataset`` once for the run (saved as
 ``model_save_path/norm_stats.json``), split, and per fold build the loaders
-(the validation batch is ``batch_size * val_batch_multiplier``), then train
-the fold; a fold that fails is logged with its trace and skipped, as in the
+(the validation batch is ``batch_size * val_batch_multiplier``, both loaders
+``prefetch_depth`` batches ahead on a background thread), then train the
+fold; a fold that fails is logged with its trace and skipped, as in the
 reference. The split is the stratified K-fold (``cfg.fold_seed``), or with
 ``split_mode=holdout`` one stratified split of ``val_fraction`` after every
 class is oversampled to 2 members, trained as fold 1.
 
-The images come from the decoded-image cache (``data/source.py:
-load_decode_cache``), read once over the whole manifest; folds index into it.
+The images are decoded once over the whole manifest (``data/source.py:
+ImageSource``, from the JPEG files under ``train_dir``), into the decode
+cache under ``cache_dir`` with ``use_decode_cache`` (reused when it is
+complete) or else in memory; folds index into them.
 
 Not ported, each raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
-queue A, item 8), ``train_ensemble`` (ViT, queue A, item 6) and
-``use_decode_cache=false`` (decoding without the cache, queue A, item 4).
-``prefetch_depth > 0`` logs a warning: the loader runs in the step's thread.
+queue A, item 8) and ``train_ensemble`` (ViT, queue A, item 6).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from image_classification_tpu_torch.data.sampling import (
     WeightedSampler,
     inverse_frequency_weights,
 )
-from image_classification_tpu_torch.data.source import load_decode_cache
+from image_classification_tpu_torch.data.source import ImageSource
 from image_classification_tpu_torch.data.splits import (
     oversample_minority,
     stratified_kfold,
@@ -50,14 +51,11 @@ from image_classification_tpu_torch.train.loop import FoldResult, train_fold
 logger = logging.getLogger("ic_tpu_torch")
 
 
-def build_source(cfg, manifest: Manifest, img_dir: str):
-    """The decoded uint8 images of ``manifest`` under ``img_dir``."""
-    if not cfg.use_decode_cache:
-        raise NotImplementedError("use_decode_cache=false: the port decodes no "
-                                  "JPEGs yet and reads only the decode cache "
-                                  "(ROADMAP queue A, item 4)")
-    return load_decode_cache(img_dir, manifest.ids, tuple(cfg.native_size),
-                             cfg.cache_dir)
+def build_source(cfg, manifest: Manifest, img_dir: str) -> ImageSource:
+    """The decoded uint8 images of ``manifest`` under ``img_dir``, through
+    the decode cache when ``cfg.use_decode_cache``."""
+    return ImageSource(img_dir, manifest.ids, native_size=tuple(cfg.native_size),
+                       cache_dir=cfg.cache_dir if cfg.use_decode_cache else None)
 
 
 def make_fold_loaders(cfg, source, manifest: Manifest, train_idx, val_idx,
@@ -75,11 +73,12 @@ def make_fold_loaders(cfg, source, manifest: Manifest, train_idx, val_idx,
         sampler = ShuffleSampler(len(train_idx), seed=cfg.seed)
     train_loader = DataLoader(source, manifest, indices=train_idx,
                               batch_size=cfg.batch_size, sampler=sampler,
-                              drop_last=True, device=device)
+                              drop_last=True, device=device,
+                              prefetch_depth=cfg.prefetch_depth)
     val_loader = DataLoader(source, manifest, indices=val_idx,
                             batch_size=cfg.batch_size * cfg.val_batch_multiplier,
                             sampler=SequentialSampler(len(val_idx)), pad_last=True,
-                            device=device)
+                            device=device, prefetch_depth=cfg.prefetch_depth)
     return train_loader, val_loader, train_labels
 
 
@@ -89,19 +88,15 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
     if cfg.fold_parallel:
         raise NotImplementedError("fold_parallel: training the folds side by side "
                                   "is not ported (ROADMAP queue A, item 8)")
-    if cfg.prefetch_depth > 0:
-        logger.warning("prefetch_depth=%d: the port's loader has no background "
-                       "prefetch; it assembles each batch in the step's thread "
-                       "(ROADMAP queue A, item 4)", cfg.prefetch_depth)
     if manifest is None:
         manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
     logger.info("class distribution: %s",
                 distribution_stats(manifest.labels, cfg.num_classes))
     missing = verify_images(manifest, cfg.train_dir)
     if missing:
-        logger.warning("%d/%d train images missing on disk (first 10: %s); the "
-                       "decode cache serves them", len(missing), len(manifest),
-                       missing[:10])
+        logger.warning("%d/%d train images missing on disk (first 10: %s); a "
+                       "complete decode cache serves them, else fallback images "
+                       "are substituted", len(missing), len(manifest), missing[:10])
     if source is None:
         source = build_source(cfg, manifest, cfg.train_dir)
     # the stats ship with the checkpoints, so `cli predict` normalizes as

@@ -11,6 +11,7 @@ import pkgutil
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -190,27 +191,42 @@ def test_debug_nans_raises_on_a_nan_loss(tmp_path, debug_nans):
 
 
 def test_use_decode_cache_false_raises(tmp_path):
-    cfg = _tiny_cfg(tmp_path, use_decode_cache=False)
+    """``use_decode_cache=false`` decodes in memory and writes no cache
+    (missing files take the black fallback); what the port cannot decode
+    still raises: a PNG."""
+    cfg = _tiny_cfg(tmp_path, use_decode_cache=False, cache_dir=str(tmp_path / "cache"))
     manifest = Manifest(np.array(["0", "1"], object), np.array([0, 1]))
-    with pytest.raises(NotImplementedError, match="use_decode_cache=false"):
+    images = kfold.build_source(cfg, manifest, str(tmp_path)).get_batch(np.arange(2))
+    assert images.shape == (2, 32, 32, 3) and not images.any()
+    assert not os.path.exists(tmp_path / "cache")
+    (tmp_path / "1.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(8))
+    with pytest.raises(NotImplementedError, match="1.png"):
         kfold.build_source(cfg, manifest, str(tmp_path))
 
 
-def test_prefetch_depth_logs_one_warning(tmp_path):
-    """The default ``prefetch_depth=2`` warns once per ``train_k_fold``
-    (here stopped right after, at the decode cache)."""
-    cfg = _tiny_cfg(tmp_path, use_decode_cache=False)
+def test_prefetch_depth_logs_one_warning(tmp_path, monkeypatch):
+    """The default ``prefetch_depth=2`` is followed: both loaders of a fold
+    prefetch on a background thread, and ``train_k_fold`` logs no warning
+    about it (here each fold stops as soon as its loaders are built)."""
+    cfg = _tiny_cfg(tmp_path, use_decode_cache=False, num_folds=2)
     assert cfg.prefetch_depth == 2
-    manifest = Manifest(np.array(["0", "1", "2"], object), np.array([0, 1, 2]))
+    manifest = Manifest(np.array([str(i) for i in range(6)], object), np.arange(6) % 3)
+    depths = []
+
+    def loaders_only(cfg, train_loader, val_loader, **kw):
+        depths.extend([train_loader.prefetch_depth, val_loader.prefetch_depth])
+        return types.SimpleNamespace(best_val_acc=0.0)
+
+    monkeypatch.setattr(kfold, "train_fold", loaders_only)
     records = []
     handler = logging.Handler()
     handler.emit = records.append
     logger = logging.getLogger("ic_tpu_torch")   # propagates nowhere once set up
     logger.addHandler(handler)
     try:
-        with pytest.raises(NotImplementedError):
-            kfold.train_k_fold(cfg, manifest=manifest, device="cpu")
+        kfold.train_k_fold(cfg, manifest=manifest, device="cpu")
     finally:
         logger.removeHandler(handler)
-    warned = [r for r in records if "prefetch_depth" in r.getMessage()]
-    assert len(warned) == 1 and warned[0].levelno == logging.WARNING
+    assert depths == [2, 2, 2, 2]
+    warned = [r for r in records if "prefetch" in r.getMessage()]
+    assert warned == []

@@ -320,7 +320,7 @@ def test_progressive_size_matches_jax(epoch):
 
 
 @pytest.mark.parametrize("over", [
-    {"fold_parallel": True}, {"use_decode_cache": False},
+    {"fold_parallel": True}, {"gelu_approximate": True},
     {"drop_path_rate": 0.1}, {"ensemble_models": ("convnext_atto",)},
     {"use_swa": True},
 ])
@@ -330,7 +330,7 @@ def test_what_is_not_ported_raises(runs, over):
     if "ensemble_models" in over:
         with pytest.raises(NotImplementedError):
             kfold.train_ensemble(cfg)
-    elif "use_swa" in over or "drop_path_rate" in over:
+    elif "use_swa" in over or "drop_path_rate" in over or "gelu_approximate" in over:
         with pytest.raises(NotImplementedError):
             train_fold(cfg, *_fold_loaders(cfg, runs["root"]))
     else:
