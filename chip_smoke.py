@@ -48,7 +48,26 @@ versions in f32:
   the in-memory decode's, and which is then reused without the JPEGs),
   ``cli predict``, and V4 ConvNeXt-B ``cli train`` (one holdout fold, 1
   epoch) at ``prefetch_depth`` 0 and 2, with the loop's images/s and duty
-  cycle.
+  cycle;
+* V1: ``configs/v1_effb0.json`` as shipped but ``epochs=2``
+  (EfficientNet-B0 at 60x80, batch 64, plateau on train accuracy, the
+  weighted sampler, no EMA, no mix):
+  ``cli train`` (2 folds x 2 epochs) on the train entry's 44-class set,
+  ``cli predict``, which must reproduce the submission, the step alone, and
+  one step on 4 images in bf16 and in f32 against the f32 host step, on
+  inputs augmented once on the host (the loss and the BatchNorm running
+  statistics after it);
+* V3.1: ``configs/v3_1.json`` with ``swa_start_epoch=1 epochs=2``
+  (EfficientNetV2-S at 224x224, batch 128, dropout 0.2, drop-path 0.1, EMA,
+  weighted CE, the sampler, MixUp/CutMix, scale4 TTA), so SWA and its
+  BatchNorm update run in each fold: ``cli train`` (2 folds), whose log must
+  show each fold's SWA line, ``cli predict``, the step alone, one step with
+  the same drop masks and inputs against the f32 host step, and the warp at V3.1's
+  (128, 60, 80, 3) -> (128, 224, 224, 3).
+
+EfficientNet's convs, BatchNorms and activations are plain PyTorch (cuDNN),
+as they are XLA ops in the JAX package: its steps launch the warp once and
+no other kernel of the port.
 
 Every depthwise backward runs as the forward stencil on g with the flipped
 filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 forward
@@ -102,6 +121,7 @@ from image_classification_tpu_torch.aug.randaug import NUM_OPS
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
+from image_classification_tpu_torch.models.layers import drop_sites
 from image_classification_tpu_torch.ops import (
     _build,
     block_mlp,
@@ -347,6 +367,33 @@ FIXTURE_MEAN_GREY = 0.1
 # holdout fold of half the set, 1 epoch, at prefetch_depth 0 and then 2.
 DATA_V2 = ["num_folds=2", "epochs=1"]
 DATA_V4 = ["split_mode=holdout", "val_fraction=0.5", "epochs=1", "save_state_every=0"]
+V1_CONFIG = os.path.join(REPO, "configs", "v1_effb0.json")
+V31_CONFIG = os.path.join(REPO, "configs", "v3_1.json")
+V1_OVERRIDES = ["epochs=2"]
+V31_OVERRIDES = ["swa_start_epoch=1", "epochs=2"]
+EFF_FOLDS = 2
+V31_WARP_BATCH = 128
+# EfficientNet's step against the f32 host step, on REF_BATCH images
+# augmented once on the host in f32 (the bf16 aug moves pixels by a mean
+# 1.5 grey levels, which the first V1 run on the card carried into a 0.19
+# move of the statistics). Measured on an H100 80GB HBM3 at 700 W
+# (tools/effnet_precision.py and this script's V1 and V3.1 phases, B0 at
+# 60x80 / V2-S at 224, seeded init):
+# the card in f32 is within 2.4e-7 of the host's loss and 2.6e-6 / 8.0e-6
+# (rel. L2) of the running statistics' change over the step, so the card
+# computes the host's function. In bf16 the loss moved by 4.8e-3-9.2e-3 /
+# 2.6e-4-1.4e-3 and the statistics by 0.058-0.071 / 0.060-0.081: at init,
+# with 4 images a BatchNorm, the network amplifies small differences (the
+# host's f32 step with its inputs times 1 + 1e-3 N(0, 1) moved the
+# statistics by 0.015 / 0.022, and the gradients by 0.09 / 0.24), and
+# bf16's rounding of every conv, BatchNorm and silu output acts like such a
+# perturbation (with the convs on f32 inputs the statistics still moved by
+# 0.053). The bf16 bounds are about twice the largest measured; the f32
+# bounds are over 10x theirs.
+EFF_LOSS_REL_TOL = 2e-2
+EFF_STATS_REL_L2 = 0.15
+EFF_F32_LOSS_REL_TOL = 1e-5
+EFF_F32_STATS_REL_L2 = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1177,10 +1224,11 @@ def run_train() -> dict:
             "device_ms": dev_ms, **check}
 
 
-def time_entry_step(cfg) -> dict:
-    """``make_train_step`` of a train entry's model (ConvNeXt-L on V4, or
-    ConvNeXt-B on V2; aug and mix on, seeded weights) alone: the host clock
-    over TRAIN_STEPS steps after TRAIN_WARMUP, then one profiled step,
+def time_entry_step(cfg, use_ema: bool = True) -> dict:
+    """``make_train_step`` of a train entry's model (ConvNeXt-L on V4,
+    ConvNeXt-B on V2, EfficientNet-B0 on V1 or V2-S on V3.1; aug and mix
+    on, seeded weights; the EMA update with ``use_ema``) alone: the host
+    clock over TRAIN_STEPS steps after TRAIN_WARMUP, then one profiled step,
     without the loop's loader, validation and checkpoint writes around
     it."""
     bundle = train_model(cfg, "cuda")
@@ -1191,7 +1239,7 @@ def time_entry_step(cfg) -> dict:
     def step(state, batch):
         return train_step(state, batch, generator=gen)
 
-    state = create_train_state(bundle.module)
+    state = create_train_state(bundle.module, use_ema=use_ema)
     n = TRAIN_WARMUP + TRAIN_STEPS + 2
     images, labels = train_inputs(cfg, n * cfg.batch_size, seed=25)
     batches = [{"image": images[i::n].cuda(), "label": labels[i::n].cuda()}
@@ -1367,9 +1415,12 @@ def expected_launches(cfg, steps: int, forwards: int) -> dict:
     kernel (dw), and the stem and the stages under ``freeze_stages`` run
     none (nothing before them is trained); per step the aug warps once,
     and once more for each RandAugment slot."""
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["warp"] = steps * (1 + (cfg.randaugment_num_ops if cfg.use_randaugment else 0))
+    if cfg.model_name not in CONVNEXT_CONFIGS:   # EfficientNet: the warp alone
+        return want
     depths, dims = CONVNEXT_CONFIGS[cfg.model_name]
     micro = cfg.gradient_accumulation_steps * steps
-    want = dict.fromkeys(WRAPPERS, 0)
     for stage, (d, c) in enumerate(zip(depths, dims)):
         tail = "block_mlp" if block_mlp_available(c) else "gelu"
         want["dwconv"] += d * (micro + forwards)
@@ -1377,7 +1428,6 @@ def expected_launches(cfg, steps: int, forwards: int) -> dict:
         if stage >= cfg.freeze_stages:
             for name in ("dwconv", "dwconv_bwd", "dwconv_wgrad", f"{tail}_bwd"):
                 want[name] += d * micro
-    want["warp"] = steps * (1 + (cfg.randaugment_num_ops if cfg.use_randaugment else 0))
     return want
 
 
@@ -1911,6 +1961,136 @@ def _run_data(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- EfficientNet
+def check_effnet_step(cfg) -> dict:
+    """The gradient half of one train step of ``cfg``'s EfficientNet on
+    REF_BATCH uint8 images (``train/step.py:accumulate_grads``: train mode,
+    the drop masks), on the card in bf16 and in f32 against the host in
+    f32, from the same seeded weights and the same inputs: the aug and mix
+    run once, on the host in f32, from draws made on the card (the aug is
+    held by ``check_aug``). The loss and BatchNorm's running statistics
+    after the step (their change from the start, over every BatchNorm) are
+    held to their bounds; the gradients' rel. L2 is printed beside them."""
+    cfg32 = cfg.replace(compute_dtype="float32")
+    images, labels = train_inputs(cfg, REF_BATCH, seed=13)
+    draws, x, targets, runs = None, None, None, {}
+    for name, c, device in (("card", cfg, "cuda"), ("card_f32", cfg32, "cuda"),
+                            ("host", cfg32, "cpu")):
+        bundle = train_model(c, device)
+        model = bundle.module
+        if draws is None:
+            draws = draw_train_step(torch.Generator(device="cuda").manual_seed(14),
+                                    tuple(images.shape), cfg, drop_sites(model))
+            x, targets = make_batch_augment(cfg32)(
+                {"image": images, "label": labels}, draws=draws_to(draws, "cpu"))
+        stats0 = {k: v.clone() for k, v in model.named_buffers()}
+        grads, m = accumulate_grads(model, c, build_criterion(c), x.to(device),
+                                    targets.to(device), labels.to(device),
+                                    drop=draws_to(draws.drop, device))
+        runs[name] = {
+            "loss": float(m["loss"]),
+            "stats": [(v - stats0[k]).cpu() for k, v in model.named_buffers()],
+            "grads": [g.float().cpu() for g in grads],
+        }
+        del bundle, model, grads
+        torch.cuda.empty_cache()
+    host = runs["host"]
+    out = {}
+    for name in ("card", "card_f32"):
+        run = runs[name]
+        out[name] = {"loss_rel": abs(run["loss"] - host["loss"]) / abs(host["loss"]),
+                     "stats_rel_l2": rel_l2(run["stats"], host["stats"]),
+                     "grad_rel_l2": rel_l2(run["grads"], host["grads"])}
+    masks = sum(int(t.numel()) for mb in draws.drop for t in mb)
+    print(f"{cfg.model_name} train step vs f32 host step ({REF_BATCH} images, {masks} "
+          f"drop-mask entries): loss {runs['card']['loss']:.6f} (bf16) / "
+          f"{runs['card_f32']['loss']:.6f} (f32) on the card vs {host['loss']:.6f}; "
+          f"bf16 {out['card']} (bounds {EFF_LOSS_REL_TOL}, {EFF_STATS_REL_L2}); "
+          f"f32 {out['card_f32']} (bounds {EFF_F32_LOSS_REL_TOL}, "
+          f"{EFF_F32_STATS_REL_L2})", flush=True)
+    require(np.isfinite(runs["card"]["loss"]), "non-finite EfficientNet loss on the card")
+    for name, loss_tol, stats_tol in (("card", EFF_LOSS_REL_TOL, EFF_STATS_REL_L2),
+                                      ("card_f32", EFF_F32_LOSS_REL_TOL,
+                                       EFF_F32_STATS_REL_L2)):
+        require(out[name]["loss_rel"] <= loss_tol and out[name]["stats_rel_l2"] <= stats_tol,
+                f"{cfg.model_name} {name} step vs f32 host: {out[name]}")
+    return out
+
+
+def run_effnet(config: str, extra: list[str]) -> dict:
+    """Phases 8 and 9: an EfficientNet preset through ``cli train`` (2
+    folds) and ``cli predict``, its step alone and its step against the
+    host."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_effnet_") as tmp:
+        return _run_effnet(tmp, config, extra)
+
+
+def _run_effnet(tmp: str, config: str, extra: list[str]) -> dict:
+    tag = os.path.splitext(os.path.basename(config))[0]
+    over = [f"train_csv={tmp}/train.csv", f"train_dir={tmp}/train",
+            f"test_csv={tmp}/test.csv", f"test_dir={tmp}/test", f"cache_dir={tmp}/cache",
+            f"model_save_path={tmp}/models", f"output_dir={tmp}/out",
+            f"submission_path={tmp}/submission.csv", f"num_folds={EFF_FOLDS}", *extra]
+    cfg = load_config(config, over)
+    labels = entry_labels()
+    write_entry_data(cfg, labels)
+
+    # Main path, through the user's entry point. Counters from 0 right before.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["train", "--config", config, *over])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(cfg.output_dir, "train.log")) as f:
+        log = f.read()
+    require("failed; continuing" not in log, f"a {tag} fold failed:\n" + log[-4000:])
+    with open(os.path.join(cfg.output_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    require(len(records) == EFF_FOLDS * cfg.epochs, f"metrics.jsonl has {len(records)} lines")
+    require(all(np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in records),
+            "non-finite loss in metrics.jsonl")
+    swa = [ln.split(" - ")[-1] for ln in log.splitlines() if " SWA (" in ln]
+    if cfg.use_swa:
+        for fold in range(1, EFF_FOLDS + 1):
+            require(any(ln.startswith(f"fold {fold} SWA ({cfg.epochs - cfg.swa_start_epoch + 1}"
+                                      " snapshots)") for ln in swa),
+                    f"no SWA line for fold {fold} in train.log: {swa}")
+    sub = read_submission(cfg.submission_path)
+    require(sub[0] == "id,target" and len(sub) == ENTRY_TEST + 1,
+            f"submission has {len(sub)} lines, header {sub[:1]}")
+    steps = sum(r["steps"] for r in records)
+    want = expected_launches(cfg, steps, 0)
+    print(f"{tag} ({cfg.model_name}, {cfg.image_size[0]}x{cfg.image_size[1]}, batch "
+          f"{cfg.batch_size}) cli train: {train_s:.3f} s, {steps} optimizer steps, "
+          f"peak memory {peak_gib:.3f} GiB, launches {launches}", flush=True)
+    require(launches == want, f"{tag} launches {launches}, expected {want}")
+    for r in records:
+        print(f"  {tag} fold {r['fold']} epoch {r['epoch'] + 1}: train loss "
+              f"{r['train_loss']:.4f} val loss {r['val_loss']:.4f} val acc "
+              f"{r['val_acc']:.4f}; {r['images_per_sec']} images/s, duty cycle "
+              f"{r['duty_cycle']}, {r['steps']} steps in {r['wall_time_s']} s", flush=True)
+    for ln in swa:
+        print(f"  {tag} {ln}", flush=True)
+    folds = ",".join(str(k) for k in range(1, EFF_FOLDS + 1))
+    cli.main(["predict", "--config", config, "--folds", folds, *over,
+              f"submission_path={tmp}/predict.csv"])
+    again = read_submission(f"{tmp}/predict.csv")
+    require(again[0] == "id,predict" and again[1:] == sub[1:],
+            f"{tag} cli predict ({cfg.tta_mode if cfg.tta_transforms else 'no'} TTA) "
+            "differs from cli train's submission")
+    print(f"{tag} cli predict --folds {folds}: {ENTRY_TEST} rows equal to the train "
+          f"run's submission", flush=True)
+    step = time_entry_step(cfg, use_ema=cfg.use_ema)
+    check = check_effnet_step(cfg.replace(batch_size=REF_BATCH))
+    return {"train_s": train_s, "peak_mem_gib": peak_gib, "steps": steps,
+            "images_per_s": [r["images_per_sec"] for r in records], "swa": swa,
+            "step": step, "step_check": check}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -1967,6 +2147,38 @@ def main() -> int:
           f"decode {data['decode_images_per_s']:.1f} images/s at {DECODE_THREADS} threads; "
           f"V2 cli train in memory / through the cache {data['v2_train_s']}; V4 loop by "
           f"prefetch_depth {data['v4_loop']}; on {smi}", flush=True)
+    v1_cfg = load_config(V1_CONFIG)
+    require(v1_cfg.model_name == "efficientnet_b0" and tuple(v1_cfg.image_size) == NATIVE
+            and v1_cfg.batch_size == 64 and v1_cfg.schedule == "plateau"
+            and v1_cfg.use_sampler and not v1_cfg.use_ema and v1_cfg.mix_prob == 0.0,
+            "configs/v1_effb0.json no longer trains B0 at 60x80, batch 64, plateau, "
+            "the sampler, no EMA, no mix")
+    v1 = run_effnet(V1_CONFIG, V1_OVERRIDES)
+    print(f"V1 (efficientnet_b0, 60x80, batch 64): cli train {v1['train_s']} s, the "
+          f"loop's images/s by epoch {v1['images_per_s']}, peak memory "
+          f"{v1['peak_mem_gib']} GiB; the step alone {v1['step']['images_per_s']} "
+          f"images/s, {v1['step']['device_ms']} ms of device time a step, device idle "
+          f"{v1['step']['idle']:.1%}, peak memory {v1['step']['peak_mem_gib']} GiB; "
+          f"against the f32 host step {v1['step_check']}; on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    v31_cfg = load_config(V31_CONFIG, V31_OVERRIDES)
+    require(v31_cfg.model_name == "tf_efficientnetv2_s" and v31_cfg.batch_size == 128
+            and tuple(v31_cfg.image_size) == (224, 224) and v31_cfg.use_swa
+            and v31_cfg.drop_rate > 0 and v31_cfg.drop_path_rate > 0 and v31_cfg.use_ema
+            and not v31_cfg.ema_eval and v31_cfg.tta_mode == "scale4",
+            "configs/v3_1.json no longer trains V2-S at 224 with SWA, drop rates, "
+            "EMA and scale4 TTA")
+    warp_table = KernelTable()
+    check_warp(warp_table, torch.Generator(device="cuda").manual_seed(4322), "v3_1.json",
+               V31_WARP_BATCH)
+    v31 = run_effnet(V31_CONFIG, V31_OVERRIDES)
+    print(f"V3.1 (tf_efficientnetv2_s, 224x224, batch 128, swa_start_epoch=1 epochs=2): "
+          f"cli train {v31['train_s']} s, the loop's images/s by epoch "
+          f"{v31['images_per_s']}, peak memory {v31['peak_mem_gib']} GiB, SWA "
+          f"{v31['swa']}; the step alone {v31['step']['images_per_s']} images/s, "
+          f"{v31['step']['device_ms']} ms of device time a step, device idle "
+          f"{v31['step']['idle']:.1%}, peak memory {v31['step']['peak_mem_gib']} GiB; "
+          f"against the f32 host step {v31['step_check']}; on {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

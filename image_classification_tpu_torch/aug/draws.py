@@ -27,9 +27,11 @@ def randint(gen: torch.Generator, lo: int, hi: int, shape) -> torch.Tensor:
 
 
 def draws_to(draws, device):
-    """A (nested) NamedTuple of draws with every tensor moved to ``device``."""
+    """A (nested) NamedTuple or tuple of draws with every tensor moved to
+    ``device``."""
     if draws is None:
         return None
     if isinstance(draws, torch.Tensor):
         return draws.to(device)
-    return type(draws)(*(draws_to(d, device) for d in draws))
+    moved = (draws_to(d, device) for d in draws)
+    return type(draws)(*moved) if hasattr(draws, "_fields") else tuple(moved)

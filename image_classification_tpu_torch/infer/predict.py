@@ -32,8 +32,12 @@ def _cast_inference_params(model: torch.nn.Module, cfg) -> torch.nn.Module:
     Only with ``compute_dtype=bfloat16`` and ``infer_cast_params``. The
     forward casts every weight to bf16 at use anyway, so the math is
     unchanged; the cast halves the weight bytes each forward reads. Kept in
-    f32: 1-D vectors (LN scale and bias, biases, gamma) and the classifier
-    heads ``head.fc`` and ``aux_head*``, which compute in f32."""
+    f32: 1-D vectors (LN and BN scale and bias, biases, gamma), the
+    BatchNorm buffers (not parameters), and ConvNeXt's classifier heads
+    ``head.fc`` and ``aux_head*``, which compute in f32. EfficientNet's
+    ``classifier`` weight is cast, as the JAX rule (which spares
+    ``head_fc`` and ``aux_head*`` only) casts its kernel; it still computes
+    in f32, on the bf16-rounded weight."""
     if cfg.compute_dtype != "bfloat16" or not cfg.infer_cast_params:
         return model
     for name, p in model.named_parameters():

@@ -1,6 +1,6 @@
 """Model factory, port of ``image_classification_tpu/models/factory.py`` for
-the ConvNeXt family. EfficientNet and ViT are not ported yet (ROADMAP queue A,
-item 6)."""
+the ConvNeXt and EfficientNet families. ViT is not ported yet (ROADMAP
+queue A)."""
 
 from __future__ import annotations
 
@@ -11,11 +11,17 @@ import torch
 from torch import nn
 
 from image_classification_tpu_torch.models.convnext import (
+    CONVNEXT_CONFIGS,
     build_convnext,
     init_convnext_,
 )
 from image_classification_tpu_torch.models.deep_supervision import (
     DeepSupervisionModel,
+)
+from image_classification_tpu_torch.models.efficientnet import (
+    EFFNET_V1_SCALING,
+    build_efficientnet,
+    init_efficientnet_,
 )
 
 logger = logging.getLogger("ic_tpu_torch")
@@ -32,6 +38,10 @@ def _family(name: str) -> str:
     raise ValueError(f"Unknown model family for {name!r}")
 
 
+def list_models() -> list[str]:
+    return sorted(CONVNEXT_CONFIGS) + sorted(EFFNET_V1_SCALING) + ["tf_efficientnetv2_s"]
+
+
 @dataclass
 class ModelBundle:
     """A constructed model plus what the train and predict steps need to
@@ -41,37 +51,48 @@ class ModelBundle:
     module: nn.Module
     deep_supervised: bool
     input_size: tuple[int, int]
+    has_batch_stats: bool = False   # BatchNorm running statistics in buffers
 
 
 def create_model(cfg, model_name: str | None = None,
                  generator: torch.Generator | None = None) -> ModelBundle:
     """Build the configured model on the CPU, in f32, with flax's
     initialisation drawn from ``generator`` (seeded from ``cfg.seed`` when
-    omitted). Move it with ``.to(device)``. The module has no dropout or
-    batch statistics, so its train and eval modes compute the same."""
+    omitted). Move it with ``.to(device)``. It is returned in eval mode; the
+    train step puts it in train mode (EfficientNet's BatchNorm, dropout and
+    drop-path act only there). Like the JAX factory, it passes
+    ``cfg.drop_rate`` itself, so a V1 model trains without head dropout
+    unless the config sets one."""
     name = model_name or cfg.model_name
     family = _family(name)
-    if family != "convnext":
-        raise NotImplementedError(
-            f"{name}: only ConvNeXt is ported; EfficientNet and ViT are "
-            "ROADMAP queue A, item 6")
-    if cfg.drop_path_rate > 0 or cfg.drop_rate > 0:
-        raise NotImplementedError(
-            "drop_path_rate > 0 and drop_rate > 0 (stochastic depth, head "
-            "dropout) are not ported; V4 uses neither")
-    if cfg.gelu_approximate:
-        raise NotImplementedError("tanh GELU (gelu_approximate=true) is not "
-                                  "ported; the block-tail kernel is exact GELU")
+    if family == "vit":
+        raise NotImplementedError(f"{name}: ViT is not ported (ROADMAP queue A)")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    module: nn.Module = build_convnext(name, cfg.num_classes, dtype=dtype)
+    if family == "efficientnet":
+        module: nn.Module = build_efficientnet(
+            name, cfg.num_classes, drop_rate=cfg.drop_rate,
+            drop_path_rate=cfg.drop_path_rate, dtype=dtype)
+        init = init_efficientnet_
+    else:
+        if cfg.drop_path_rate > 0 or cfg.drop_rate > 0:
+            raise NotImplementedError(
+                "ConvNeXt with drop_path_rate > 0 or drop_rate > 0 is not ported: "
+                "the JAX model then leaves its block-tail kernel "
+                "(ROADMAP queue A, item 3)")
+        if cfg.gelu_approximate:
+            raise NotImplementedError("tanh GELU (gelu_approximate=true) is not "
+                                      "ported; the block-tail kernel is exact GELU")
+        module = build_convnext(name, cfg.num_classes, dtype=dtype)
+        init = init_convnext_
     deep = bool(cfg.use_deep_supervision)
     if deep:
         module = DeepSupervisionModel(module, cfg.num_classes)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    init_convnext_(module, generator)
+    init(module, generator)
     return ModelBundle(name=name, module=module.eval(), deep_supervised=deep,
-                       input_size=tuple(cfg.image_size))
+                       input_size=tuple(cfg.image_size),
+                       has_batch_stats=family == "efficientnet")
 
 
 def load_pretrained_into(model: nn.Module, cfg) -> nn.Module:

@@ -2,14 +2,19 @@
 ``image_classification_tpu/models/layers.py``.
 
 Every module keeps f32 parameters (or the bf16 ones ``infer/predict.py``
-casts to) and casts them to the activation's dtype at use. Stochastic depth
-(``DropPath``) is not ported: it is the identity at inference, and
-``models/factory.py:create_model`` refuses a configuration that trains with
-it (V4 does not).
+casts to) and casts them to the activation's dtype at use.
+
+Random masks are explicit draws, as the augmentation's are
+(``aug/draws.py``): in train mode each ``DropPath`` and ``Dropout`` with a
+positive rate applies the keep-mask it was handed (:func:`drop_sites`,
+:func:`draw_drop_masks`, :func:`drop_masks`), and refuses to run without
+one. JAX's ``make_rng("dropout")`` keys cannot be reproduced in torch, so
+tests hand both sides the same masks. In eval mode both are the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -91,3 +96,236 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
     with torch.no_grad():
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
+
+
+# --------------------------------------------------------------- BatchNorm
+def _reduce_dims(x: torch.Tensor) -> tuple[int, ...]:
+    return tuple(range(x.dim() - 1))
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """flax ``nn.BatchNorm`` on batch statistics over every dim but the
+    last: mean and E[x^2] - mean^2 in f32 (for bf16 inputs too), the
+    variance clipped at 0, then ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in f32, rounded once to x's dtype (flax 0.12 ``_compute_stats``
+    and ``_normalize``). Autograd saves x in its own dtype and the f32
+    per-channel mean and rstd, not the f32 copies of x the plain ops would
+    keep; the backward is the closed form of that function's gradient, with
+    JAX's weights for the clip (0 below it, 1/2 at 0)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        dims = _reduce_dims(x)
+        xf = x.float()
+        mean = xf.mean(dims)
+        raw = (xf * xf).mean(dims) - mean * mean
+        var = raw.clamp_min(0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = ((xf - mean) * (rstd * weight.float()) + bias.float()).to(x.dtype)
+        ctx.save_for_backward(x, mean, rstd, raw, weight)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, rstd, raw, weight = ctx.saved_tensors
+        dims = _reduce_dims(x)
+        n = x.numel() // x.shape[-1]
+        gyf = gy.float()
+        xhat = (x.float() - mean) * rstd
+        dbias = gyf.sum(dims)
+        dscale = (gyf * xhat).sum(dims)
+        clip = (raw > 0).float() + 0.5 * (raw == 0).float()
+        dx = (weight.float() * rstd) * (gyf - dbias / n - xhat * (clip * dscale / n))
+        return dx.to(x.dtype), dscale.to(weight.dtype), dbias.to(weight.dtype), None
+
+
+class BatchNorm(nn.Module):
+    """Channels-last BatchNorm with flax's arithmetic (not
+    ``torch.nn.BatchNorm2d``'s): batch statistics E[x^2] - E[x]^2 in f32,
+    clipped at 0, and a running variance that takes the biased batch
+    variance, ``ra = momentum * ra + (1 - momentum) * batch``. Defaults are
+    EfficientNet's (momentum 0.9, eps 1e-3). timm's keys: ``weight``,
+    ``bias`` and the f32 buffers ``running_mean``, ``running_var``. flax
+    keeps no batch count, so there is no ``num_batches_tracked``: a timm
+    state dict's is dropped when it loads.
+
+    Train mode normalises with the batch statistics and updates the running
+    ones in place; eval mode normalises with the running ones."""
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-3):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight.float()
+            return ((x.float() - self.running_mean) * mul
+                    + self.bias.float()).to(x.dtype)
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
+
+
+# ------------------------------------------------------------ convolutions
+def same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
+    """flax/XLA ``SAME`` padding of one side of ``n``: the total is split
+    with the extra pixel at the end (bottom/right), so a stride-2 3x3 on 60
+    rows pads (0, 1) and a stride-2 5x5 on 30 rows pads (1, 2)."""
+    total = max((-(-n // stride) - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+              groups: int = 1) -> torch.Tensor:
+    """``lax.conv`` with SAME padding on (B, H, W, Cin), ``weight`` in
+    torch's OIHW layout, in x's dtype. The NCHW view of an NHWC tensor is
+    channels_last in memory, the layout cuDNN's tensor-core kernels take
+    without a transpose, and its output comes back channels_last, so the
+    permutes on either side copy nothing. Symmetric padding goes to the
+    conv; only the extra bottom/right pixel of an uneven SAME pad is an
+    explicit ``F.pad``."""
+    k = weight.shape[-1]
+    (top, bottom), (left, right) = (same_pads(n, k, stride) for n in x.shape[1:3])
+    if bottom != top or right != left:
+        x = F.pad(x, (0, 0, 0, right - left, 0, bottom - top))
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), None, stride,
+                 (top, left), 1, groups)
+    return y.permute(0, 2, 3, 1)
+
+
+class Conv(nn.Module):
+    """Params of ``nn.Conv2d(cin, cout, k, stride, groups=groups,
+    bias=bias)`` (timm keys ``weight`` and ``bias``), forward through
+    :func:`conv_nhwc` on NHWC. The bias is added after the product is
+    rounded to x's dtype, as flax's ``nn.Conv`` adds it."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False):
+        super().__init__()
+        self.stride, self.groups = stride, groups
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv_nhwc(x, self.weight, self.stride, self.groups)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class SqueezeExcite(nn.Module):
+    """EfficientNet's SE gate: global average pool, 1x1 conv with bias,
+    silu, 1x1 conv with bias, sigmoid, times x (JAX ``SqueezeExcite``).
+    timm keys ``conv_reduce``, ``conv_expand``. On the pooled (B, C) rows
+    a 1x1 conv is a matmul."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.conv_reduce = Conv(dim, hidden, 1, bias=True)
+        self.conv_expand = Conv(hidden, dim, 1, bias=True)
+
+    @staticmethod
+    def _dense(s: torch.Tensor, conv: Conv) -> torch.Tensor:
+        w = conv.weight.reshape(conv.weight.shape[0], -1).to(s.dtype)
+        return torch.matmul(s, w.t()) + conv.bias.to(s.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = F.silu(self._dense(global_avg_pool(x), self.conv_reduce))
+        s = torch.sigmoid(self._dense(s, self.conv_expand))
+        return x * s[:, None, None, :]
+
+
+# ------------------------------------------------------- stochastic layers
+class _Masked(nn.Module):
+    """A layer that, in train mode with ``rate > 0``, keeps the rows its
+    mask marks, scaled by 1 / keep, and zeroes the rest (flax: ``where(mask,
+    x / keep, 0)``; ``keep`` is rounded to x's dtype first, as JAX's weakly
+    typed scalar is)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.mask: torch.Tensor | None = None
+
+    def mask_shape(self, rows: int) -> tuple[int, ...]:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.mask is None:
+            raise RuntimeError(
+                f"{type(self).__name__}(rate={self.rate}) in train mode needs its "
+                "keep-mask: draw it with draw_drop_masks and apply it with drop_masks")
+        keep = float(torch.tensor(1.0 - self.rate, dtype=x.dtype))
+        mask = self.mask.reshape(*self.mask.shape, *[1] * (x.dim() - self.mask.dim()))
+        return torch.where(mask, x / keep, 0.0)
+
+
+class DropPath(_Masked):
+    """Stochastic depth: the whole residual branch of a sample is dropped
+    (JAX ``DropPath``); one mask entry per sample."""
+
+    def mask_shape(self, rows: int) -> tuple[int, ...]:
+        return (rows,)
+
+
+class Dropout(_Masked):
+    """flax ``nn.Dropout`` on (B, features): one mask entry per element."""
+
+    def __init__(self, rate: float, features: int):
+        super().__init__(rate)
+        self.features = features
+
+    def mask_shape(self, rows: int) -> tuple[int, ...]:
+        return (rows, self.features)
+
+
+def drop_path_rates(total: float, depths: tuple[int, ...]) -> list[list[float]]:
+    """Linearly increasing stochastic-depth rates over all blocks:
+    ``total * i / max(1, n - 1)`` for block i of n, split by stage."""
+    n = sum(depths)
+    rates = [total * i / max(1, n - 1) for i in range(n)]
+    out, i = [], 0
+    for d in depths:
+        out.append(rates[i:i + d])
+        i += d
+    return out
+
+
+def drop_sites(model: nn.Module) -> list[_Masked]:
+    """The model's DropPath and Dropout layers with a positive rate, in the
+    order the forward runs them (blocks, then the head)."""
+    return [m for m in model.modules() if isinstance(m, _Masked) and m.rate > 0]
+
+
+def draw_drop_masks(generator: torch.Generator, sites: list[_Masked],
+                    rows: int) -> tuple[torch.Tensor, ...]:
+    """One bool keep-mask per site for a batch of ``rows``, ``uniform <
+    1 - rate`` as ``jax.random.bernoulli``, on ``generator``'s device."""
+    return tuple(torch.rand(s.mask_shape(rows), generator=generator,
+                            device=generator.device) < 1.0 - s.rate for s in sites)
+
+
+@contextlib.contextmanager
+def drop_masks(sites: list[_Masked], masks):
+    """Hand each site its mask for the forwards inside the block."""
+    if len(sites) != len(masks):
+        raise ValueError(f"{len(masks)} drop masks for {len(sites)} sites")
+    for s, m in zip(sites, masks):
+        s.mask = m
+    try:
+        yield
+    finally:
+        for s in sites:
+            s.mask = None

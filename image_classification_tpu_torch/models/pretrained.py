@@ -1,4 +1,4 @@
-"""The weight carrier: flax ConvNeXt variables -> the port's state dict.
+"""The weight carriers: flax variables -> the port's state dict.
 
 ``convnext_state_dict_from_jax(params)`` takes the flax ``params`` collection
 as nested dicts of arrays (numpy, or anything ``np.asarray`` reads) and
@@ -10,6 +10,14 @@ tensors equal ``export_convnext``'s: flax conv kernels HWIO become OIHW (the
 depthwise ``(7, 7, 1, C)`` becomes ``(C, 1, 7, 7)``) and Dense ``(in, out)``
 becomes Linear ``(out, in)``. Depths are read from the tree.
 
+``efficientnet_state_dict_from_jax(params, batch_stats)`` does the same for
+an EfficientNet: its keys and tensors equal the JAX package's
+``export_efficientnet`` (the block form of each block is read from the
+tree), BatchNorm's running statistics come from ``batch_stats``, and with
+deep supervision the tree's ``backbone`` and ``aux_head{i}`` map as for
+ConvNeXt. Without ``batch_stats`` only the parameters' keys are written
+(for trees shaped like the parameters: EMA, Adam's moments, SWA).
+
 ``load_pretrained_into(model, cfg)`` imports a local timm-keyed checkpoint
 file (``cfg.pretrained_path``) into a freshly initialised model, as the JAX
 package's ``load_checkpoint_into_variables`` does: nested
@@ -19,11 +27,16 @@ shapes differ from the model's are skipped, the backbone of a
 deep-supervised model takes the timm keys (its aux heads keep their init),
 and a missing file leaves the random init with a warning.
 
+``load_checkpoint_into`` copies the parameters and the BatchNorm running
+statistics; timm's ``num_batches_tracked`` has no counterpart and is
+skipped, as the JAX package's ``import_efficientnet`` skips it.
+
 ``train_state_from_jax`` carries a whole train state the same way: the
-parameters, the EMA shadow and Adam's ``mu`` and ``nu`` (trees shaped like
-the parameters) become tensors aligned with ``model.named_parameters()``,
-and the counters become host integers, so both frameworks can start from
-one non-trivial optimizer state.
+parameters and, for an EfficientNet, ``batch_stats`` load into the model;
+the EMA shadow, Adam's ``mu`` and ``nu`` and SWA's running average (trees
+shaped like the parameters) become tensors aligned with
+``model.named_parameters()``, and the counters become host integers, so
+both frameworks can start from one non-trivial optimizer state.
 """
 
 from __future__ import annotations
@@ -37,8 +50,9 @@ import torch
 
 logger = logging.getLogger("ic_tpu_torch")
 
-# The final classifier's keys (what timm strips when num_classes differs).
-_HEAD_KEYS = ("head.fc.weight", "head.fc.bias")
+# The final classifier's keys (what timm strips when num_classes differs):
+# ConvNeXt's and EfficientNet's.
+_HEAD_KEYS = ("head.fc.weight", "head.fc.bias", "classifier.weight", "classifier.bias")
 
 
 def _conv(w) -> np.ndarray:  # flax HWIO -> torch OIHW
@@ -88,36 +102,128 @@ def _backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
     return sd
 
 
+def _effnet_backbone(p: Mapping[str, Any],
+                     bs: Mapping[str, Any] | None) -> dict[str, np.ndarray]:
+    """``export_efficientnet``'s keys and tensors; the running statistics
+    only where ``bs`` is given."""
+    sd: dict[str, np.ndarray] = {}
+
+    def conv(key: str, node) -> None:
+        sd[f"{key}.weight"] = _conv(node["kernel"])
+        if "bias" in node:
+            sd[f"{key}.bias"] = _vec(node["bias"])
+
+    def bn(key: str, node, stats) -> None:
+        sd[f"{key}.weight"] = _vec(node["scale"])
+        sd[f"{key}.bias"] = _vec(node["bias"])
+        if stats is not None:
+            sd[f"{key}.running_mean"] = _vec(stats["mean"])
+            sd[f"{key}.running_var"] = _vec(stats["var"])
+
+    def sub(tree, *path):
+        for k in path:
+            if tree is None:
+                return None
+            tree = tree[k]
+        return tree
+
+    conv("conv_stem", p["stem_conv"])
+    bn("bn1", p["stem_bn"], sub(bs, "stem_bn"))
+    conv("conv_head", p["head_conv"])
+    bn("bn2", p["head_bn"], sub(bs, "head_bn"))
+    sd["classifier.weight"] = _linear(p["classifier"]["kernel"])
+    sd["classifier.bias"] = _vec(p["classifier"]["bias"])
+    s = 0
+    while f"stage{s}_block0" in p:
+        b = 0
+        while f"stage{s}_block{b}" in p:
+            ours, tp = f"stage{s}_block{b}", f"blocks.{s}.{b}"
+            q = p[ours]
+            if "conv_exp" in q:        # EdgeResidual
+                names = [("conv_exp", "conv_exp", "bn1"), ("conv_pwl", "conv_proj", "bn2")]
+            elif "conv_pw" in q:       # InvertedResidual
+                names = [("conv_pw", "conv_pw", "bn1"), ("conv_dw", "conv_dw", "bn2"),
+                         ("conv_pwl", "conv_proj", "bn3")]
+            elif "conv_dw" in q:       # DepthwiseSeparable
+                names = [("conv_dw", "conv_dw", "bn1"), ("conv_pw", "conv_proj", "bn2")]
+            else:                      # ConvBnAct
+                names = [("conv", "conv_proj", "bn1")]
+            for timm_conv, flax_conv, timm_bn in names:
+                flax_bn = "bn_" + flax_conv.removeprefix("conv_")
+                conv(f"{tp}.{timm_conv}", q[flax_conv])
+                bn(f"{tp}.{timm_bn}", q[flax_bn], sub(bs, ours, flax_bn))
+            if "se" in q:
+                conv(f"{tp}.se.conv_reduce", q["se"]["reduce"])
+                conv(f"{tp}.se.conv_expand", q["se"]["expand"])
+            b += 1
+        s += 1
+    return sd
+
+
+def _with_heads(params: Mapping[str, Any], backbone) -> dict[str, np.ndarray]:
+    """A deep-supervised tree (``backbone`` + ``aux_head{i}``) or a bare
+    backbone, through ``backbone(tree)``."""
+    if "backbone" not in params:
+        return backbone(params)
+    sd = {f"backbone.{k}": v for k, v in backbone(params["backbone"]).items()}
+    i = 0
+    while f"aux_head{i}" in params:
+        head = params[f"aux_head{i}"]
+        sd[f"aux_head{i}.weight"] = _linear(head["kernel"])
+        sd[f"aux_head{i}.bias"] = _vec(head["bias"])
+        i += 1
+    return sd
+
+
+def _tensors(sd: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
 def convnext_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The port's state dict for the flax ``params`` tree (any tree of that
     shape: parameters, EMA, Adam moments)."""
-    if "backbone" in params:
-        sd = {f"backbone.{k}": v for k, v in _backbone(params["backbone"]).items()}
-        i = 0
-        while f"aux_head{i}" in params:
-            head = params[f"aux_head{i}"]
-            sd[f"aux_head{i}.weight"] = _linear(head["kernel"])
-            sd[f"aux_head{i}.bias"] = _vec(head["bias"])
-            i += 1
-    else:
-        sd = _backbone(params)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return _tensors(_with_heads(params, _backbone))
+
+
+def efficientnet_state_dict_from_jax(
+        params: Mapping[str, Any],
+        batch_stats: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
+    """The port's state dict for a flax EfficientNet's ``params`` and
+    ``batch_stats`` (``export_efficientnet``'s keys and tensors); without
+    ``batch_stats``, the parameters' keys only."""
+    if batch_stats is not None and "backbone" in batch_stats:
+        batch_stats = batch_stats["backbone"]
+    return _tensors(_with_heads(params, lambda p: _effnet_backbone(p, batch_stats)))
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any] | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The carrier for the tree's family (an EfficientNet has a stem
+    BatchNorm, ConvNeXt a stem LayerNorm)."""
+    if "stem_bn" in params.get("backbone", params):
+        return efficientnet_state_dict_from_jax(params, batch_stats)
+    return convnext_state_dict_from_jax(params)
 
 
 def train_state_from_jax(model: torch.nn.Module, params: Mapping[str, Any],
                          ema: Mapping[str, Any] | None, mu: Mapping[str, Any],
-                         nu: Mapping[str, Any], count: int, step: int):
+                         nu: Mapping[str, Any], count: int, step: int,
+                         batch_stats: Mapping[str, Any] | None = None,
+                         swa: Mapping[str, Any] | None = None, swa_count: int = 0):
     """The port's ``TrainState`` for the JAX package's (params, EMA, Adam
-    mu/nu, Adam count, step): ``params`` load into ``model`` with
-    ``strict=True``; the other trees go to the device of its parameters."""
+    mu/nu, Adam count, step, and for an EfficientNet batch_stats, SWA's
+    average and count): ``params`` and ``batch_stats`` load into ``model``
+    with ``strict=True``; the other trees go to the device of its
+    parameters."""
     from image_classification_tpu_torch.train.train_state import TrainState
 
-    model.load_state_dict(convnext_state_dict_from_jax(params), strict=True)
+    model.load_state_dict(state_dict_from_jax(params, batch_stats), strict=True)
     names = [n for n, _ in model.named_parameters()]
     device = next(model.parameters()).device
 
     def aligned(tree):
-        sd = convnext_state_dict_from_jax(tree)
+        sd = state_dict_from_jax(tree)
         if set(sd) != set(names):
             raise ValueError("tree does not match the model's parameters")
         # copies: the step updates these in place, and the arrays may be
@@ -126,7 +232,9 @@ def train_state_from_jax(model: torch.nn.Module, params: Mapping[str, Any],
 
     return TrainState(step=int(step), model=model, mu=aligned(mu),
                       nu=aligned(nu), count=int(count),
-                      ema=None if ema is None else aligned(ema))
+                      ema=None if ema is None else aligned(ema),
+                      swa=None if swa is None else aligned(swa),
+                      swa_count=int(swa_count))
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
@@ -148,12 +256,14 @@ def load_state_dict(path: str) -> dict[str, torch.Tensor]:
 @torch.no_grad()
 def load_checkpoint_into(model: torch.nn.Module, path: str,
                          strip_head: bool = False) -> int:
-    """Copy the timm-keyed tensors of ``path`` into ``model`` in place;
-    returns how many were loaded. ``dwconv`` is read as ``conv_dw``."""
+    """Copy the timm-keyed tensors of ``path`` into ``model``'s parameters
+    and BatchNorm statistics in place; returns how many were loaded.
+    ``dwconv`` is read as ``conv_dw``; keys the model does not have (timm's
+    ``num_batches_tracked``) are skipped."""
     sd = load_state_dict(path)
     if strip_head:
         sd = {k: v for k, v in sd.items() if k not in _HEAD_KEYS}
-    params = dict(model.named_parameters())
+    params = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     prefix = "backbone." if any(k.startswith("backbone.") for k in params) else ""
     n = 0
     for key, val in sd.items():

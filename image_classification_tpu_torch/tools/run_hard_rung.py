@@ -1,22 +1,32 @@
-"""The V4 EMA-off rung of the hard ladder (``RESULTS.md``, ablations)
-through the port's ``cli train``, from JPEG files the port writes.
+"""A rung of the hard ladder (``RESULTS.md``) through the port's ``cli
+train``, from JPEG files the port writes.
 
     PYTHONPATH=. python image_classification_tpu_torch/tools/run_hard_rung.py \
-        [--root DIR] [--budget-s SECONDS] [--resume] [key=value ...]
+        [--rung v4_emaoff|v1|v3_1] [--root DIR] [--budget-s SECONDS] \
+        [--resume] [key=value ...]
 
 Renders the seed-0 hard set (``data/synthetic_hard.py``: 35,551 train and
 2,000 test images at 60x80, the default ``HardTaskSpec``) as q90 JPEGs
 under ``--root`` once (a marker file records a complete set), then runs
 ``cli train`` with the JAX package's configuration of the rung
-(``tools/run_hard_ladder.py`` stage ``abl_noema`` through
-``tools/train_demo_tpu.py hard=true``): ``Config()`` defaults with
-``model_name=convnext_base epochs=30 patience=10 split_mode=holdout
-val_fraction=0.5 use_ema=false save_state_every=0``; ``key=value``
-arguments are appended to those. As ``metrics.jsonl`` grows it prints each
-epoch's val accuracy beside the JAX package's
-(``docs/results/hard_ladder_metrics.jsonl`` lines 74-103, one a epoch, 555
-steps each), and at the end one JSON line with both curves and the best of
-each over the epochs run.
+(``tools/run_hard_ladder.py``'s stage through ``tools/train_demo_tpu.py
+hard=true``; ``key=value`` arguments are appended):
+
+- ``v4_emaoff`` (the default; stage ``abl_noema``): ``Config()`` defaults
+  with ``model_name=convnext_base epochs=30 patience=10 split_mode=holdout
+  val_fraction=0.5 use_ema=false save_state_every=0``; JAX's curve is
+  ``docs/results/hard_ladder_metrics.jsonl`` lines 74-103 (555 steps an
+  epoch);
+- ``v1`` (stage ``v1``): ``configs/v1_effb0.json`` with ``epochs=12
+  num_folds=2``; lines 1-24 (2 folds, 277 steps an epoch);
+- ``v3_1`` (stage ``v3_1``): ``configs/v3_1.json`` with ``epochs=12
+  num_folds=2 swa_start_epoch=8 patience=8 save_state_every=0``; lines
+  134-157 (2 folds, 138 steps an epoch), and each fold's SWA validation
+  from ``train.log``.
+
+As ``metrics.jsonl`` grows it prints each epoch's val accuracy beside the
+JAX package's, and at the end one JSON line with both curves and the best
+of each fold over the epochs run.
 
 ``--budget-s`` stops ``cli train`` once the next epoch would end past that
 many seconds from the start; the schedule keeps its 30-epoch horizon, so the
@@ -39,18 +49,31 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, REPO)
 
 N_TRAIN, N_TEST = 35551, 2000
-RUNG = ["model_name=convnext_base", "epochs=30", "patience=10", "split_mode=holdout",
-        "val_fraction=0.5", "use_ema=false", "save_state_every=0"]
 JAX_METRICS = os.path.join(REPO, "docs", "results", "hard_ladder_metrics.jsonl")
-JAX_LINES = (74, 103)   # the abl_noema rung, epochs 0-29
+# rung -> (its name, the config file or None for Config() defaults, its
+# overrides, the JAX curve's lines in JAX_METRICS, folds, epochs)
+RUNGS = {
+    "v4_emaoff": ("abl_noema (V4, EMA off, 50% holdout)", None,
+                  ["model_name=convnext_base", "epochs=30", "patience=10",
+                   "split_mode=holdout", "val_fraction=0.5", "use_ema=false",
+                   "save_state_every=0"], (74, 103), 1, 30),
+    "v1": ("v1 (configs/v1_effb0.json, 2 folds)", "configs/v1_effb0.json",
+           ["epochs=12", "num_folds=2"], (1, 24), 2, 12),
+    "v3_1": ("v3_1 (configs/v3_1.json, 2 folds, SWA from epoch 8)", "configs/v3_1.json",
+             ["epochs=12", "num_folds=2", "swa_start_epoch=8", "patience=8",
+              "save_state_every=0"], (134, 157), 2, 12),
+}
 
 
-def jax_curve() -> list[dict]:
+def jax_curve(rung: str) -> dict[tuple[int, int], dict]:
+    """The JAX package's records of the rung, by (fold, epoch)."""
+    _, _, _, (first, last), folds, epochs = RUNGS[rung]
     with open(JAX_METRICS) as f:
-        lines = f.read().splitlines()[JAX_LINES[0] - 1:JAX_LINES[1]]
-    curve = [json.loads(line) for line in lines]
-    if [r["epoch"] for r in curve] != list(range(30)):
-        raise ValueError(f"{JAX_METRICS}:{JAX_LINES}: not one rung's 30 epochs")
+        lines = f.read().splitlines()[first - 1:last]
+    curve = {(r.get("fold", 1), r["epoch"]): r for r in map(json.loads, lines)}
+    if set(curve) != {(f, e) for f in range(1, folds + 1) for e in range(epochs)}:
+        raise ValueError(f"{JAX_METRICS}:{first}-{last}: not rung {rung}'s "
+                         f"{folds} x {epochs} epochs")
     return curve
 
 
@@ -76,6 +99,7 @@ def read_records(path: str) -> list[dict]:
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--rung", choices=sorted(RUNGS), default="v4_emaoff")
     p.add_argument("--root", default=os.path.join(REPO, "demo_data_hard_torch"))
     p.add_argument("--budget-s", type=float, default=None)
     p.add_argument("--resume", action="store_true")
@@ -83,24 +107,28 @@ def main() -> int:
     args = p.parse_args()
     t_start = time.perf_counter()
     root = os.path.abspath(args.root)
-    reference = jax_curve()
+    name, config, rung_args, _, folds, _ = RUNGS[args.rung]
+    reference = jax_curve(args.rung)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     made = render(root)
     print(f"hard set under {root}: render {made['render_s']:.1f} s, encode "
           f"{made['encode_s']:.1f} s; on {smi}", flush=True)
-    out_dir = os.path.join(root, "out")
-    over = [*RUNG, f"train_dir={root}/train", f"test_dir={root}/test",
+    suffix = "" if args.rung == "v4_emaoff" else f"_{args.rung}"
+    out_dir = os.path.join(root, f"out{suffix}")
+    over = [*rung_args, f"train_dir={root}/train", f"test_dir={root}/test",
             f"train_csv={root}/train.csv", f"test_csv={root}/sample_submission.csv",
-            f"submission_path={root}/submission.csv", f"model_save_path={root}/models",
+            f"submission_path={root}/submission{suffix}.csv",
+            f"model_save_path={root}/models{suffix}",
             f"output_dir={out_dir}", f"cache_dir={root}/.cache", *args.overrides]
     metrics = os.path.join(out_dir, "metrics.jsonl")
     seen = len(read_records(metrics)) if args.resume else 0
     if not args.resume and os.path.exists(metrics):
         os.remove(metrics)
     cmd = [sys.executable, "-m", "image_classification_tpu_torch.cli", "train",
-           *(["--resume"] if args.resume else []), *over]
+           *(["--resume"] if args.resume else []),
+           *([] if config is None else ["--config", os.path.join(REPO, config)]), *over]
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [REPO, *filter(None, [os.environ.get("PYTHONPATH")])])}
     proc = subprocess.Popen(cmd, cwd=REPO, env=env)
@@ -112,12 +140,13 @@ def main() -> int:
             records = read_records(metrics)
             for r in records[seen:]:
                 now = time.perf_counter()
-                ref = reference[r["epoch"]] if r["epoch"] < len(reference) else {}
-                rows.append({"epoch": r["epoch"], "val_acc": r["val_acc"],
+                ref = reference.get((r["fold"], r["epoch"]), {})
+                rows.append({"fold": r["fold"], "epoch": r["epoch"], "val_acc": r["val_acc"],
                              "jax_val_acc": ref.get("val_acc"), "train_loss": r["train_loss"],
                              "val_loss": r["val_loss"], "images_per_sec": r["images_per_sec"],
                              "duty_cycle": r["duty_cycle"], "epoch_s": round(now - last, 1)})
-                print(f"epoch {r['epoch']:2d}: val acc {r['val_acc']:.4f} (JAX "
+                print(f"fold {r['fold']} epoch {r['epoch']:2d}: val acc "
+                      f"{r['val_acc']:.4f} (JAX "
                       f"{ref.get('val_acc', float('nan')):.4f}), train loss "
                       f"{r['train_loss']:.4f}, {r['images_per_sec']} images/s, duty cycle "
                       f"{r['duty_cycle']}, {now - last:.1f} s", flush=True)
@@ -144,14 +173,26 @@ def main() -> int:
     if proc.returncode != 0 and not stopped:
         print(f"cli train exited with {proc.returncode}", flush=True)
         return 1
-    epochs = [row["epoch"] for row in rows]
+    log_path = os.path.join(out_dir, "train.log")
+    swa = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            swa = [ln.split(" - ")[-1] for ln in f.read().splitlines() if " SWA (" in ln]
+    per_fold = {}
+    for fold in range(1, folds + 1):
+        mine = [row for row in rows if row["fold"] == fold]
+        theirs = [r for (f, _), r in reference.items() if f == fold]
+        per_fold[fold] = {
+            "epochs_run": len(mine),
+            "best_val_acc": max((row["val_acc"] for row in mine), default=None),
+            "jax_best_val_acc_same_epochs": max(
+                (reference[(fold, row["epoch"])]["val_acc"] for row in mine
+                 if (fold, row["epoch"]) in reference), default=None),
+            "jax_best_val_acc_all_epochs": max(r["val_acc"] for r in theirs),
+        }
     summary = {
-        "rung": "abl_noema (V4, EMA off, 50% holdout)", "device": smi,
-        "epochs_run": len(rows), "stopped_by_budget": stopped,
-        "best_val_acc": max((row["val_acc"] for row in rows), default=None),
-        "jax_best_val_acc_same_epochs": max(
-            (reference[e]["val_acc"] for e in epochs if e < len(reference)), default=None),
-        "jax_best_val_acc_30_epochs": max(r["val_acc"] for r in reference),
+        "rung": name, "device": smi, "epochs_run": len(rows),
+        "stopped_by_budget": stopped, "per_fold": per_fold, "swa": swa,
         "seconds": round(time.perf_counter() - t_start, 1), **made, "epochs": rows}
     print(json.dumps(summary), flush=True)
     return 0

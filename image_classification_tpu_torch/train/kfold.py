@@ -15,7 +15,7 @@ cache under ``cache_dir`` with ``use_decode_cache`` (reused when it is
 complete) or else in memory; folds index into them.
 
 Not ported, each raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
-queue A, item 8) and ``train_ensemble`` (ViT, queue A, item 6).
+queue A, item 6) and ``train_ensemble`` (ViT, queue A, item 4).
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
                  device: str | torch.device = "cuda") -> list[FoldResult]:
     if cfg.fold_parallel:
         raise NotImplementedError("fold_parallel: training the folds side by side "
-                                  "is not ported (ROADMAP queue A, item 8)")
+                                  "is not ported (ROADMAP queue A, item 6)")
     if manifest is None:
         manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
     logger.info("class distribution: %s",
@@ -140,4 +140,4 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
 def train_ensemble(cfg, *args, **kwargs):
     raise NotImplementedError("train_ensemble: the multi-architecture ensemble "
                               "needs ViT, which is not ported (ROADMAP queue A, "
-                              "item 6)")
+                              "item 4)")

@@ -3,14 +3,19 @@
 under a :class:`StepTimer`, validation on the EMA weights, ``metrics.jsonl``,
 best-acc and best-loss checkpoints, patience early stop, the plateau
 schedule, LR recording, full-state checkpoints and resume),
-``build_lr_schedule``, ``progressive_size`` and ``evaluate``.
+``build_lr_schedule``, ``progressive_size`` and ``evaluate``; and SWA
+(a snapshot of the parameters after each validation from
+``swa_start_epoch`` on; after the last epoch the average, its BatchNorm
+statistics refreshed over the train set, validates and competes for the
+best checkpoints). ``swa_lr`` is read nowhere, as in the JAX package.
 
 Random numbers: JAX's threefry keys cannot be reproduced in torch. A fold's
 initial weights come from a ``torch.Generator`` seeded from
-``(cfg.seed, fold)``; a step's augmentation and mix draws from a generator on
-the card seeded from ``(cfg.seed, fold, "steps", step)`` (the JAX step folds
-the step into its key the same way), so a resumed fold draws what the
-straight run drew. The epoch orders are the JAX package's (numpy samplers).
+``(cfg.seed, fold)``; a step's augmentation, mix and drop-mask draws from a
+generator on the card seeded from ``(cfg.seed, fold, "steps", step)`` (the
+JAX step folds the step into its key the same way), so a resumed fold draws
+what the straight run drew. The epoch orders are the JAX package's (numpy
+samplers).
 
 ``debug_nans`` (JAX's ``jax_debug_nans``) checks after each train step that
 the loss and the global gradient norm are finite, and raises
@@ -18,13 +23,13 @@ the loss and the global gradient norm are finite, and raises
 so it runs only when the key is set.
 
 Not ported: the compiled-step sharing across folds (``program_sig`` /
-``shared``), which exists to reuse XLA compiles, and SWA, whose batch-norm
-step serves EfficientNet (not ported).
+``shared``), which exists to reuse XLA compiles.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -44,8 +49,13 @@ from image_classification_tpu_torch.train.schedule import (
     PlateauScheduler,
     warmup_cosine_schedule,
 )
-from image_classification_tpu_torch.train.step import make_eval_step, make_train_step
-from image_classification_tpu_torch.train.train_state import create_train_state
+from image_classification_tpu_torch.models.layers import drop_sites
+from image_classification_tpu_torch.train.step import (
+    make_bn_update_step,
+    make_eval_step,
+    make_train_step,
+)
+from image_classification_tpu_torch.train.train_state import create_train_state, swa_update
 from image_classification_tpu_torch.utils import checkpoint as ckpt
 from image_classification_tpu_torch.utils.lr_monitor import LRMonitor
 from image_classification_tpu_torch.utils.metrics import macro_f1, per_class_f1
@@ -140,15 +150,31 @@ def evaluate(eval_step, state, loader) -> dict:
     }
 
 
+def finalize_swa(bundle: ModelBundle, cfg, state, train_loader, val_loader,
+                 eval_step):
+    """SWA's average as the fold's model: its weights go into the model
+    (the last weights are not needed after the last epoch) with EMA off;
+    a model with BatchNorm refreshes its running statistics with one
+    train-mode forward per train batch (epoch 0's order), on from the live
+    ones; then it validates. Returns (the SWA state, its validation)."""
+    swa_state = dataclasses.replace(state, ema=None)
+    with torch.no_grad():
+        torch._foreach_copy_(swa_state.params(), state.swa)
+    if bundle.has_batch_stats:
+        bn_step = make_bn_update_step(bundle, cfg)
+        params = swa_state.eval_params(use_ema=False)
+        train_loader.set_epoch(0)
+        for batch in train_loader:
+            bn_step(params, batch)
+    return swa_state, evaluate(eval_step, swa_state, val_loader)
+
+
 def train_fold(cfg, train_loader, val_loader, fold: int = 1,
                class_counts: np.ndarray | None = None, resume: bool = False,
                model_name: str | None = None) -> FoldResult:
     """Train one fold on ``train_loader``'s device, validating on
     ``val_loader`` after every epoch; returns the best weights (by val
-    accuracy) and the per-epoch history."""
-    if cfg.use_swa:
-        raise NotImplementedError("use_swa: SWA and its batch-norm update step "
-                                  "are not ported (ROADMAP queue A, item 6)")
+    accuracy, SWA's average included) and the per-epoch history."""
     device = train_loader.device
     steps_per_epoch = len(train_loader)
     bundle = create_model(cfg, model_name, generator=torch.Generator().manual_seed(
@@ -165,7 +191,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
     tx = build_optimizer(cfg, lr_schedule)
     plateau = (PlateauScheduler(cfg.lr, cfg.plateau_factor, cfg.plateau_patience)
                if cfg.schedule == "plateau" else None)
-    state = create_train_state(bundle.module, use_ema=cfg.use_ema)
+    state = create_train_state(bundle.module, use_ema=cfg.use_ema, use_swa=cfg.use_swa)
 
     start_epoch = 0
     resumed_host: dict = {}
@@ -187,7 +213,8 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
         return step_cache[size]
 
     eval_step = make_eval_step(bundle, cfg, use_ema=cfg.ema_eval)
-    generator = (torch.Generator(device=device) if cfg.aug_enabled else None)
+    draws = cfg.aug_enabled or bool(drop_sites(bundle.module))
+    generator = torch.Generator(device=device) if draws else None
     use_ema_eval = cfg.use_ema and cfg.ema_eval
 
     # Host bookkeeping, restored on resume so a resumed fold is the exact
@@ -274,6 +301,9 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
             train_acc, val["loss"], val["accuracy"], val["macro_f1"],
             perf["images_per_sec"], 100 * perf["duty_cycle"])
 
+        if cfg.use_swa and epoch + 1 >= cfg.swa_start_epoch:
+            swa_update(state)
+
         improved_acc = val["accuracy"] > best_val_acc
         improved_loss = cfg.save_best_loss and val["loss"] < best_val_loss
         if improved_acc:
@@ -285,7 +315,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
             best_val_loss = val["loss"]
         if improved_acc or improved_loss:
             # one snapshot serves both tiers (the same weights this epoch)
-            weights = state.eval_params(use_ema=use_ema_eval)
+            weights = state.eval_state_dict(use_ema=use_ema_eval)
 
             def best_job(w, acc=val["accuracy"], loss=val["loss"],
                          ia=improved_acc, il=improved_loss) -> dict:
@@ -340,10 +370,31 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
             logger.info("fold %d: early stopping after epoch %d", fold, epoch + 1)
             break
 
-    # every pending write lands before the result is assembled
+    # every pending write lands before the result is assembled (and before
+    # SWA may replace the best checkpoint)
     writer.join()
     if "variables" in best_box:
         best_variables = best_box["variables"]
+
+    if cfg.use_swa and state.swa_count > 0:
+        swa_state, swa_val = finalize_swa(bundle, cfg, state, train_loader,
+                                          val_loader, eval_step)
+        logger.info("fold %d SWA (%d snapshots): val %.4f/%.4f", fold,
+                    state.swa_count, swa_val["loss"], swa_val["accuracy"])
+        wins_acc = swa_val["accuracy"] > best_val_acc
+        wins_loss = cfg.save_best_loss and swa_val["loss"] < best_val_loss
+        if wins_acc or wins_loss:
+            host = ckpt.to_host(swa_state.eval_state_dict(use_ema=False))
+        if wins_acc:
+            best_val_acc = swa_val["accuracy"]
+            best_variables = host
+            ckpt.save_best(cfg.model_save_path, fold, host, best_val_acc,
+                           val_loss=swa_val["loss"])
+        if wins_loss:
+            # SWA competes in the loss tier too
+            best_val_loss = swa_val["loss"]
+            ckpt.save_best(cfg.model_save_path, fold, host, swa_val["accuracy"],
+                           val_loss=swa_val["loss"], metric="loss")
 
     if lr_monitor.lrs:
         try:
@@ -352,6 +403,6 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
             logger.debug("fold %d: LR plot skipped (%s)", fold, e)
 
     if not best_variables:  # zero epochs or all NaN: the final weights
-        best_variables = ckpt.to_host(dict(zip(state.names(), state.params())))
+        best_variables = ckpt.to_host(state.eval_state_dict(use_ema=False))
     return FoldResult(fold=fold, best_val_acc=best_val_acc,
                       best_variables=best_variables, bundle=bundle, history=history)

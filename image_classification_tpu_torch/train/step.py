@@ -1,18 +1,25 @@
 """The train and eval steps and the predict-side steps of
 ``image_classification_tpu/train/step.py``: ``make_train_step``,
-``make_eval_step``, ``make_eval_views``, ``make_forward_views``,
-``tta_num_views`` and ``make_predict_step``.
+``make_eval_step``, ``make_bn_update_step``, ``make_eval_views``,
+``make_forward_views``, ``tta_num_views`` and ``make_predict_step``.
+
+The model's mode is set by the step that runs it: the train step and the
+BN update run it in train mode (batch statistics, dropout and drop-path
+active, running statistics updated), the eval step and the predict steps in
+eval mode (running statistics, no masks).
 
 With ``aug_enabled=true`` the train step takes uint8 images from the loader
 and runs the device-side augmentation, then in-batch MixUp/CutMix when
 ``mixup_alpha > 0 or cutmix_alpha > 0``; with ``aug_enabled=false`` it takes
-pre-augmented float images. Its random draws come from a ``torch.Generator``
-on the model's device, or ready-made (:func:`draw_train_step`; the tests
-feed the JAX package's). Parity notes, as in the JAX module: microbatch
-``k`` holds rows ``k, k+accum, ...`` of the batch; the microbatch gradients
-are summed (``grad_accum_reduction='sum'``, the reference's AMP path) or
-averaged; the loss is the mean of the microbatch losses and the accuracy is
-taken on the main head against the integer labels from before the mix; EMA
+pre-augmented float images. Its random draws (the aug's, the mix's, then
+per microbatch one keep-mask for each dropout and drop-path site of the
+model) come from a ``torch.Generator`` on the model's device, or
+ready-made (:func:`draw_train_step`; the tests feed the JAX package's).
+Parity notes, as in the JAX module: microbatch ``k`` holds rows ``k,
+k+accum, ...`` of the batch; the microbatch gradients are summed
+(``grad_accum_reduction='sum'``, the reference's AMP path) or averaged;
+the loss is the mean of the microbatch losses and the accuracy is taken
+on the main head against the integer labels from before the mix; EMA
 updates once per optimizer step. Metrics come back as device tensors:
 nothing in a step waits for the card.
 """
@@ -36,6 +43,11 @@ from image_classification_tpu_torch.aug.pipeline import (
     draw_train_augment,
     eval_preprocess,
 )
+from image_classification_tpu_torch.models.layers import (
+    draw_drop_masks,
+    drop_masks,
+    drop_sites,
+)
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import smoothed_cross_entropy
 from image_classification_tpu_torch.train.optim import trainable_indices
@@ -50,9 +62,18 @@ def _main_head(outputs) -> torch.Tensor:
     return outputs[0] if isinstance(outputs, (tuple, list)) else outputs
 
 
+def set_mode(model: torch.nn.Module, training: bool) -> None:
+    """Train or eval mode for the whole module tree, set only when it
+    differs (``nn.Module.train`` walks every submodule)."""
+    if model.training != training:
+        model.train(training)
+
+
 class StepDraws(NamedTuple):
-    aug: AugDraws
+    aug: AugDraws | None   # None with aug_enabled=false
     mix: MixDraws | None   # None when the config mixes nothing
+    # per microbatch, one keep-mask per drop site (layers.drop_sites)
+    drop: tuple[tuple[torch.Tensor, ...], ...] = ()
 
 
 def mix_config(cfg) -> MixCfg | None:
@@ -63,15 +84,23 @@ def mix_config(cfg) -> MixCfg | None:
                   prob=cfg.mix_prob, num_classes=cfg.num_classes)
 
 
-def draw_train_step(generator: torch.Generator, shape, cfg) -> StepDraws:
-    """Every random draw of one train step with ``aug_enabled=true`` for a
-    uint8 batch of ``shape`` (B, H, W, C): the augmentation's, then the
-    mix's, on ``generator``'s device."""
-    aug = aug_configs_from(cfg)
-    out_shape = (shape[0], *aug["image_size"], shape[-1])
-    mix = mix_config(cfg)
-    return StepDraws(draw_train_augment(generator, shape, aug),
-                     None if mix is None else draw_mix(generator, out_shape, mix))
+def draw_train_step(generator: torch.Generator, shape, cfg, sites=()) -> StepDraws:
+    """Every random draw of one train step for a batch of ``shape`` (B, H,
+    W, C), on ``generator``'s device: with ``aug_enabled=true`` the
+    augmentation's, then the mix's; then for each of the
+    ``gradient_accumulation_steps`` microbatches one keep-mask per drop site
+    (``sites``: ``layers.drop_sites(model)``; none for ConvNeXt)."""
+    aug_d = mix_d = None
+    if cfg.aug_enabled:
+        aug = aug_configs_from(cfg)
+        out_shape = (shape[0], *aug["image_size"], shape[-1])
+        mix = mix_config(cfg)
+        aug_d = draw_train_augment(generator, shape, aug)
+        mix_d = None if mix is None else draw_mix(generator, out_shape, mix)
+    accum = cfg.gradient_accumulation_steps
+    drop = tuple(draw_drop_masks(generator, sites, shape[0] // accum)
+                 for _ in range(accum)) if sites else ()
+    return StepDraws(aug_d, mix_d, drop)
 
 
 def make_batch_augment(cfg) -> Callable:
@@ -81,7 +110,7 @@ def make_batch_augment(cfg) -> Callable:
     targets) when the config mixes, from ``draws`` or else fresh draws on
     ``generator``. With ``aug_enabled=false``: the batch as it is."""
     if not cfg.aug_enabled:
-        return lambda batch, *_: (batch["image"], batch["label"])
+        return lambda batch, *_, **__: (batch["image"], batch["label"])
     aug = aug_configs_from(cfg)
     mix = mix_config(cfg)
 
@@ -112,8 +141,11 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
     with ``aug_enabled=true``, float (B, H, W, 3) already preprocessed with
     ``aug_enabled=false``; ``tx`` is ``train/optim.py:build_optimizer``'s
     result. With ``freeze_stages > 0`` only the trainable parameters are
-    differentiated and updated."""
+    differentiated and updated. A generator (or draws) is needed whenever
+    the step draws anything: with the aug on, or a model with drop
+    sites."""
     augment = make_batch_augment(cfg)
+    sites = drop_sites(bundle.module)
     params = list(bundle.module.parameters())
     trainable = trainable_indices([n for n, _ in bundle.module.named_parameters()],
                                   tx.freeze_stages)
@@ -123,9 +155,15 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None,
                    draws: StepDraws | None = None):
-        images, targets = augment(batch, generator, draws)
+        if draws is None and (cfg.aug_enabled or sites):
+            if generator is None:
+                raise ValueError("this train step draws (aug or drop masks): pass a "
+                                 "torch.Generator on the model's device, or draws")
+            draws = draw_train_step(generator, tuple(batch["image"].shape), cfg, sites)
+        images, targets = augment(batch, draws=draws)
         grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
-                                          images, targets, batch["label"], params)
+                                          images, targets, batch["label"], params,
+                                          drop=None if draws is None else draws.drop)
         gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg, trainable=trainable)
         if gnorm is not None:
             metrics["grad_norm"] = gnorm
@@ -138,16 +176,17 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
 def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
                      images: torch.Tensor, targets: torch.Tensor,
                      labels: torch.Tensor | None = None,
-                     params: list[torch.Tensor] | None = None):
-    """The gradient half of the train step: ``(grads, metrics)``, the
-    gradients aligned with ``params`` (default ``model.parameters()``;
-    autograd runs no part of the backward that only other parameters
-    need) and reduced over the
-    ``cfg.gradient_accumulation_steps`` strided microbatches. ``targets``
-    are what the loss takes (integer labels, or soft (B, classes) ones after
-    a mix); the accuracy counts argmax hits against the integer ``labels``
-    (default: ``targets``), which after a mix are the labels from before
-    it."""
+                     params: list[torch.Tensor] | None = None, drop=None):
+    """The gradient half of the train step, with the model in train mode:
+    ``(grads, metrics)``, the gradients aligned with ``params`` (default
+    ``model.parameters()``; autograd runs no part of the backward that only
+    other parameters need) and reduced over the
+    ``cfg.gradient_accumulation_steps`` strided microbatches. ``drop``
+    holds one tuple of keep-masks per microbatch for the model's drop sites
+    (``StepDraws.drop``). ``targets`` are what the loss takes (integer
+    labels, or soft (B, classes) ones after a mix); the accuracy counts
+    argmax hits against the integer ``labels`` (default: ``targets``),
+    which after a mix are the labels from before it."""
     if labels is None:
         labels = targets
     accum = cfg.gradient_accumulation_steps
@@ -156,10 +195,13 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
                          f"gradient_accumulation_steps={accum}")
     if params is None:
         params = list(model.parameters())
+    sites = drop_sites(model) if drop else []
+    set_mode(model, True)
     grads = None
     losses, correct = [], []
     for k in range(accum):
-        outputs = model(images[k::accum])
+        with drop_masks(sites, drop[k] if sites else ()):
+            outputs = model(images[k::accum])
         loss = criterion(outputs, targets[k::accum])
         g = torch.autograd.grad(loss, params)
         grads = list(g) if grads is None else torch._foreach_add(grads, g)
@@ -176,7 +218,9 @@ def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
     """Build ``eval_step(state, batch) -> metrics`` with masked sums, so the
     padding rows of a last batch count for nothing. The deep-supervised
     model is scored on its main head with label-smoothed CE, on the EMA
-    weights when ``use_ema`` and ``cfg.use_ema``. ``batch``: 'image' uint8
+    weights when ``use_ema`` and ``cfg.use_ema``, in eval mode with the
+    module's live running statistics (as the JAX step pairs the EMA
+    parameters with the live ``batch_stats``). ``batch``: 'image' uint8
     (B, h, w, 3), 'label' (B,) and 'mask' (B,) bool on the device (a host
     mask is copied, and the copy waits for the card)."""
     dtype = compute_dtype(cfg)
@@ -184,6 +228,7 @@ def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
+        set_mode(bundle.module, False)
         params = state.eval_params(use_ema=use_ema and cfg.use_ema)
         images = eval_preprocess(
             batch["image"], tuple(cfg.image_size), tuple(cfg.mean),
@@ -208,6 +253,35 @@ def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
     return eval_step
 
 
+def make_bn_update_step(bundle, cfg) -> Callable:
+    """``bn_step(params, batch)``: one forward in train mode with the
+    parameters ``params`` (a dict by name, e.g. SWA's average) on the
+    ``eval_preprocess``-ed uint8 'image' batch, which updates the module's
+    running statistics in place with the BN momentum; they are not reset
+    first. Drop-path and dropout stay active with the same masks for every
+    batch of a size: a generator seeded 0 afresh per batch, as the JAX step
+    passes ``jax.random.key(0)``. This is the JAX package's step, not
+    torch's ``update_bn`` (which resets the statistics and averages them
+    equally)."""
+    dtype = compute_dtype(cfg)
+    model = bundle.module
+    sites = drop_sites(model)
+
+    @torch.no_grad()
+    def bn_step(params: dict[str, torch.Tensor], batch: dict) -> None:
+        images = eval_preprocess(
+            batch["image"], tuple(cfg.image_size), tuple(cfg.mean),
+            tuple(cfg.std), dtype=dtype, round_uint8=cfg.eval_resize_uint8,
+        )
+        gen = torch.Generator(device=images.device).manual_seed(0)
+        masks = draw_drop_masks(gen, sites, images.shape[0])
+        set_mode(model, True)
+        with drop_masks(sites, masks):
+            torch.func.functional_call(model, params, (images,))
+
+    return bn_step
+
+
 def make_eval_views(cfg, tta: Callable | None = None) -> Callable:
     """``views(images_u8) -> (V*B, H, W, C)``: eval preprocessing, then the
     TTA views stacked along the batch dim (V = 1 without TTA). Built once per
@@ -227,11 +301,12 @@ def make_eval_views(cfg, tta: Callable | None = None) -> Callable:
 
 
 def make_forward_views(model: torch.nn.Module, n_views: int = 1) -> Callable:
-    """``forward(x_views) -> probs (B, classes)``: one forward over the
-    stacked views, softmax in f32, mean over views."""
+    """``forward(x_views) -> probs (B, classes)``: one forward in eval mode
+    over the stacked views, softmax in f32, mean over views."""
 
     @torch.no_grad()
     def forward(x_views: torch.Tensor) -> torch.Tensor:
+        set_mode(model, False)
         logits = _main_head(model(x_views))
         probs = torch.softmax(logits.float(), dim=-1)
         if n_views == 1:

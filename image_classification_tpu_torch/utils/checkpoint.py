@@ -5,14 +5,16 @@ Two tiers, as in the JAX package:
 
 - ``save_best`` / ``load_best``: the best weights of a fold, as a plain
   state dict of the model (the keys ``model.state_dict()`` has, timm's for
-  the backbone) in ``best_model_fold{k}.pt``, or ``best_loss_model_fold{k}.pt``
-  for the lowest-val-loss tier; ``cli predict`` loads them with
+  the backbone, BatchNorm's running statistics included) in
+  ``best_model_fold{k}.pt``, or ``best_loss_model_fold{k}.pt`` for the
+  lowest-val-loss tier; ``cli predict`` loads them with
   ``strict=True, weights_only=True``. Their metadata
   ``{val_acc, val_loss, fold, metric}`` sits beside each, in
   ``best_model_fold{k}.json``.
 - ``save_train_state`` / ``load_train_state``: the whole train state
-  (parameters, EMA, Adam's ``mu`` and ``nu`` keyed by parameter name, the
-  Adam count and the step) with the epoch, the config and the trainer's host
+  (parameters, EMA, Adam's ``mu`` and ``nu`` and SWA's average keyed by
+  parameter name, the module's buffers, the Adam count, the step and the
+  SWA count) with the epoch, the config and the trainer's host
   bookkeeping, in ``train_state_fold{k}.pt``, for an exact resume.
 
 Every file is written to a temporary sibling and swapped into place; the
@@ -184,15 +186,19 @@ def resume_path(output_dir: str, fold: int) -> str:
 
 
 def state_tree(state) -> dict:
-    """A ``TrainState``'s tensors keyed by parameter name, and its counters."""
+    """A ``TrainState``'s tensors keyed by parameter (or buffer) name, and
+    its counters."""
     names = state.names()
     return {
         "model": dict(zip(names, state.params())),
+        "buffers": state.buffers(),
         "ema": None if state.ema is None else dict(zip(names, state.ema)),
+        "swa": None if state.swa is None else dict(zip(names, state.swa)),
         "mu": dict(zip(names, state.mu)),
         "nu": dict(zip(names, state.nu)),
         "count": int(state.count),
         "step": int(state.step),
+        "swa_count": int(state.swa_count),
     }
 
 
@@ -222,16 +228,25 @@ def load_train_state(output_dir: str, fold: int, state) -> tuple[Any, int, dict]
         return None
     tree = torch.load(path, map_location="cpu", weights_only=True)
     names = state.names()
-    if set(tree["model"]) != set(names) or (tree["ema"] is None) != (state.ema is None):
+    buffers = state.buffers()
+    # files written before buffers and SWA were carried have neither
+    tree.setdefault("buffers", {})
+    tree.setdefault("swa", None)
+    if (set(tree["model"]) != set(names) or set(tree["buffers"]) != set(buffers)
+            or (tree["ema"] is None) != (state.ema is None)
+            or (tree["swa"] is None) != (state.swa is None)):
         raise ValueError(f"{path} does not match the model's parameters")
     with torch.no_grad():
         for name, p, m, v in zip(names, state.params(), state.mu, state.nu):
             p.copy_(tree["model"][name])
             m.copy_(tree["mu"][name])
             v.copy_(tree["nu"][name])
-        if state.ema is not None:
-            for name, e in zip(names, state.ema):
-                e.copy_(tree["ema"][name])
+        for name, b in buffers.items():
+            b.copy_(tree["buffers"][name])
+        for part, values in (("ema", state.ema), ("swa", state.swa)):
+            for name, t in zip(names, values or []):
+                t.copy_(tree[part][name])
     state.count = int(tree["count"])
     state.step = int(tree["step"])
+    state.swa_count = int(tree.get("swa_count", 0))
     return state, int(tree["epoch"]) + 1, tree.get("host_state") or {}

@@ -31,7 +31,9 @@ from image_classification_tpu.infer import predict_ensemble as jax_predict
 from image_classification_tpu.models.factory import create_model as jax_create_model
 from image_classification_tpu.models.factory import load_pretrained_into as jax_load_pretrained
 from image_classification_tpu.models.pretrained import export_convnext
+from image_classification_tpu.train.kfold import make_fold_loaders as jax_make_fold_loaders
 from image_classification_tpu.train.kfold import train_k_fold as jax_train_k_fold
+from image_classification_tpu.train.loop import train_fold as jax_train_fold
 from image_classification_tpu.train.loop import progressive_size as jax_progressive_size
 from image_classification_tpu.utils import checkpoint as jax_ckpt
 from image_classification_tpu_torch import cli
@@ -126,7 +128,8 @@ def runs(tmp_path_factory):
     ids, preds, probs = jax_predict([r.bundle for r in results],
                                     [r.best_variables for r in results], loader, jcfg)
     return {"root": root, "kw": kw, "jkw": jkw, "jax": results,
-            "jax_ids": ids, "jax_preds": preds, "jax_probs": probs}
+            "jax_ids": ids, "jax_preds": preds, "jax_probs": probs,
+            "train_images": data["images"]["train"]}
 
 
 def read_metrics(path: str) -> list[dict]:
@@ -322,7 +325,6 @@ def test_progressive_size_matches_jax(epoch):
 @pytest.mark.parametrize("over", [
     {"fold_parallel": True}, {"gelu_approximate": True},
     {"drop_path_rate": 0.1}, {"ensemble_models": ("convnext_atto",)},
-    {"use_swa": True},
 ])
 def test_what_is_not_ported_raises(runs, over):
     kw = {**settings(runs["root"], "x", epochs=1), **over}
@@ -330,9 +332,68 @@ def test_what_is_not_ported_raises(runs, over):
     if "ensemble_models" in over:
         with pytest.raises(NotImplementedError):
             kfold.train_ensemble(cfg)
-    elif "use_swa" in over or "drop_path_rate" in over or "gelu_approximate" in over:
+    elif "drop_path_rate" in over or "gelu_approximate" in over:
         with pytest.raises(NotImplementedError):
             train_fold(cfg, *_fold_loaders(cfg, runs["root"]))
     else:
         with pytest.raises(NotImplementedError):
             kfold.train_k_fold(cfg, device="cpu")
+
+
+def _swa_lines(caplog) -> list[tuple[float, float]]:
+    out, seen = [], set()
+    for rec in caplog.records:   # a record may reach the handler twice
+        msg = rec.getMessage()
+        if id(rec) in seen:
+            continue
+        seen.add(id(rec))
+        if "SWA (2 snapshots): val " in msg:
+            loss, acc = msg.rsplit("val ", 1)[1].split("/")
+            out.append((float(loss), float(acc)))
+    return out
+
+
+def test_swa_on_convnext_matches_jax(runs, tmp_path, caplog):
+    """SWA on ``convnext_atto`` (no BatchNorm, so no BN update), fold 1 of
+    the shared data, 3 epochs with snapshots after epochs 2 and 3: the SWA
+    validation, the history, and the best weights and metadata of both
+    tiers (SWA competes in each) against JAX's ``train_fold``."""
+    root = runs["root"]
+    kw = settings(root, "swa", use_swa=True, swa_start_epoch=2, patience=10,
+                  model_save_path=f"{tmp_path}/port/m", output_dir=f"{tmp_path}/port/o")
+    jkw = {**kw, "model_save_path": f"{tmp_path}/jax/m", "output_dir": f"{tmp_path}/jax/o"}
+    cfg, jcfg = Config(**kw).validate(), JaxConfig(**jkw).validate()
+    loggers = [logging.getLogger(n) for n in ("ic_tpu_torch", "ic_tpu")]
+    for lg in loggers:
+        lg.addHandler(caplog.handler)
+    try:
+        caplog.set_level(logging.INFO)
+        ours = train_fold(cfg, *_fold_loaders(cfg, root))
+        port_lines = _swa_lines(caplog)
+        caplog.clear()
+        manifest = JaxManifest.from_csv(jcfg.train_csv, num_classes=NUM_CLASSES)
+        train_idx, val_idx = next(kfold.stratified_kfold(manifest.labels, 2, 42))
+        loaders = jax_make_fold_loaders(jcfg, JaxArraySource(runs["train_images"]),
+                                        manifest, train_idx, val_idx)
+        theirs = jax_train_fold(jcfg, loaders[0], loaders[1], fold=1)
+        jax_lines = _swa_lines(caplog)
+    finally:
+        for lg in loggers:
+            lg.removeHandler(caplog.handler)
+    assert len(port_lines) == len(jax_lines) == 1
+    assert port_lines[0] == pytest.approx(jax_lines[0], abs=2e-4)
+    assert [h["epoch"] for h in ours.history] == [h["epoch"] for h in theirs.history]
+    for m, h in zip(ours.history, theirs.history):
+        assert m["val_loss"] == pytest.approx(h["val_loss"], rel=REL)
+    assert ours.best_val_acc == theirs.best_val_acc
+    for metric in ("acc", "loss"):
+        mine, meta = ckpt.load_best(f"{tmp_path}/port/m", 1, metric)
+        jmeta = jax_ckpt.load_metadata(jax_ckpt.best_path(f"{tmp_path}/jax/m", 1, metric))
+        assert meta["val_acc"] == jmeta["val_acc"]
+        assert meta["val_loss"] == pytest.approx(jmeta["val_loss"], rel=REL)
+        template = {"params": theirs.best_variables["params"]}
+        ref = convnext_state_dict_from_jax(jax_ckpt.load_best(
+            f"{tmp_path}/jax/m", 1, template, metric)[0]["params"])
+        for k, v in ref.items():
+            scale = max(float(v.abs().max()), 1e-3)
+            assert float((mine[k] - v).abs().max()) <= REL * scale, (metric, k)
