@@ -63,7 +63,20 @@ versions in f32:
   BatchNorm update run in each fold: ``cli train`` (2 folds), whose log must
   show each fold's SWA line, ``cli predict``, the step alone, one step with
   the same drop masks and inputs against the f32 host step, and the warp at V3.1's
-  (128, 60, 80, 3) -> (128, 224, 224, 3).
+  (128, 60, 80, 3) -> (128, 224, 224, 3);
+* V2 ensemble: ``configs/v2_convbase.json`` as shipped (ConvNeXt-B +
+  ViT-B/16 + DeiT-B/16, weights .4/.3/.3, batch 64, RandAugment,
+  MixUp/CutMix, flip6) but ``image_size=[224,224] num_folds=2 epochs=1``:
+  ``cli train`` on the train entry's set (each member's checkpoints under
+  ``<models>/<member>``, its weight in the log, launch counts exact), ``cli
+  predict`` of each member alone, the train submission against the
+  .4/.3/.3 mix of the members' probabilities; the ViT-B step alone (images/s,
+  device time, idle share, the attention core's share, exact launches: GELU
+  forward and backward 12 times a microbatch, the warp 1 + 3 times); one
+  ViT-B step with dropout, attention dropout and drop-path, and one
+  ConvNeXt-B step with drop-path and head dropout, each in bf16 and f32
+  against the f32 host step on the same masks and inputs augmented once on
+  the host; GELU at ViT-B's (64 x 197, 3072).
 
 EfficientNet's convs, BatchNorms and activations are plain PyTorch (cuDNN),
 as they are XLA ops in the JAX package: its steps launch the warp once and
@@ -121,7 +134,11 @@ from image_classification_tpu_torch.aug.randaug import NUM_OPS
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
-from image_classification_tpu_torch.models.layers import drop_sites
+from image_classification_tpu_torch.models.layers import (
+    drop_path_rates,
+    drop_sites,
+)
+from image_classification_tpu_torch.models.vit import VIT_CONFIGS
 from image_classification_tpu_torch.ops import (
     _build,
     block_mlp,
@@ -145,6 +162,7 @@ from image_classification_tpu_torch.ops import (
     warp_reference,
 )
 from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
+from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import build_criterion
 from image_classification_tpu_torch.train.optim import build_optimizer, is_frozen
 from image_classification_tpu_torch.train.step import (
@@ -394,6 +412,45 @@ EFF_LOSS_REL_TOL = 2e-2
 EFF_STATS_REL_L2 = 0.15
 EFF_F32_LOSS_REL_TOL = 1e-5
 EFF_F32_STATS_REL_L2 = 1e-4
+# V2 as shipped: configs/v2_convbase.json's ConvNeXt-B + ViT-B/16 +
+# DeiT-B/16 ensemble, weights .4/.3/.3, batch 64, RandAugment, MixUp/CutMix,
+# flip6 TTA, through ``cli train`` on the train entry's 44-class set, at
+# 224x224 (the size the ViT members are named for: at the shipped 60x80
+# their folds fail, in the JAX package as in the port), 2 folds x 1 epoch.
+V2E_OVERRIDES = ["image_size=[224,224]", "num_folds=2", "epochs=1"]
+V2E_MEMBERS = ("convnext_base", "vit_base_patch16_224", "deit_base_patch16_224")
+V2E_WEIGHTS = (0.4, 0.3, 0.3)
+V2E_FOLDS = 2
+V2E_STAGE_HW = ((56, 56), (28, 28), (14, 14), (7, 7))   # ConvNeXt-B's maps at 224
+VIT_MODEL = "vit_base_patch16_224"
+VIT_TOKENS_224 = 197     # 14 x 14 patches of 16 pixels + the cls token
+# The train submission against the members' probabilities combined
+# .4/.3/.3: rows whose top two are within this are not compared.
+V2E_PROB_MARGIN = 1e-3
+# The drop-site steps: every kind of site live (ViT: token and attention
+# dropout and both DropPaths; ConvNeXt: drop-path on blocks 1-35 and the
+# head's dropout).
+VIT_DROP = ["drop_rate=0.1", "drop_path_rate=0.1"]
+CONVNEXT_DROP = ["drop_path_rate=0.1", "drop_rate=0.2"]
+# The drop-site steps against the f32 host step (4 images at 224, inputs
+# augmented once on the host in f32, the same masks; loss rel, gradient rel
+# L2, update rel L2 after one AdamW step from a fresh state at the end of
+# warmup). Measured on an NVIDIA H100 80GB HBM3 at 700 W (fixed seeds: the
+# numbers repeat). The card in f32 computes the host's function: ViT-B
+# 1.2e-7 / 8.9e-7 / 2.4e-5, ConvNeXt-B 6.4e-8 / 5.0e-7 / 1.4e-5 (the update
+# most: AdamW steps by ~lr * sign(g) where |g| is near its eps, and the key
+# bias's gradient is zero in exact arithmetic, its rounding noise differing
+# between any two sums); its bounds are ~10x those. ViT-B in bf16:
+# 2.77e-4 / 9.79e-3 / 0.0985 (12 blocks, each rounding its attention
+# weights and MLP to bf16; the update, as for ConvNeXt, is AdamW's sign of
+# gradients near zero); its bounds are under twice those. ConvNeXt-B in
+# bf16 with drop-path on blocks 1-35: 9.07e-4 / 7.71e-3 / 0.0908 (the
+# update as above); its bounds are under twice those, not the ConvNeXt-L
+# step's TRAIN_LOSS_REL_TOL, which left that loss 10% of room.
+VIT_F32_BOUNDS = (1e-6, 1e-5, 2.5e-4)
+VIT_BOUNDS = (5e-4, 0.019, 0.19)
+CONVNEXT_F32_BOUNDS = (1e-6, 5e-6, 1.5e-4)
+CONVNEXT_BOUNDS = (1.8e-3, 0.015, 0.18)
 
 
 class SmokeFailure(RuntimeError):
@@ -785,17 +842,7 @@ def check_stage(table: KernelTable, gen, stage: int, hw, c: int,
                       6 * m * c + 16 * c * c, 16 * m * c * c, BF16_TENSOR_FLOPS)
         del args, y, ref
     else:
-        x = randn(gen, fwd_batch * mh * mw, 4 * c, scale=3.0)
-        y, ref = gelu(x), gelu_reference(x)
-        ulps = bf16_ulp_distance(y, ref)
-        require(ulps <= ULP_TOL, f"gelu {tuple(x.shape)}: {ulps} ulps")
-        ms, lib_ms = kernel_and_library_ms(f"gelu {tuple(x.shape)}", lambda: gelu(x),
-                                           lambda: torch.nn.functional.gelu(x))
-        table.add("gelu", tuple(x.shape), per,
-                  (y.float() - ref.float()).abs().max().item(), ms,
-                  time_ms(lambda: gelu_reference(x), 5), lib_ms,
-                  4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
-        del x, y, ref
+        check_gelu_fwd(table, gen, fwd_batch * mh * mw, 4 * c, per)
     torch.cuda.empty_cache()
 
     x = randn(gen, bwd_batch, mh, mw, c)
@@ -863,20 +910,42 @@ def check_stage(table: KernelTable, gen, stage: int, hw, c: int,
                   BF16_TENSOR_FLOPS)
         del args, y, a, u, dy, bwd_args, ours, ref, again
     else:
-        x = randn(gen, bwd_batch * mh * mw, 4 * c, scale=3.0)
-        dy = randn(gen, bwd_batch * mh * mw, 4 * c)
-        dx, ref = gelu_bwd(x, dy), gelu_grad_reference(x, dy)
-        ulps = bf16_ulp_distance(dx, ref)
-        require(ulps <= ULP_TOL, f"gelu bwd {tuple(x.shape)}: {ulps} ulps")
-        ms, lib_ms = kernel_and_library_ms(f"gelu bwd {tuple(x.shape)}",
-                                           lambda: gelu_bwd(x, dy),
-                                           lambda: torch.ops.aten.gelu_backward(dy, x))
-        table.add("gelu_bwd", tuple(x.shape), per,
-                  (dx.float() - ref.float()).abs().max().item(), ms,
-                  time_ms(lambda: gelu_grad_reference(x, dy), 5), lib_ms,
-                  6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
-        del x, dy, dx, ref
+        check_gelu_bwd(table, gen, bwd_batch * mh * mw, 4 * c, per)
     torch.cuda.empty_cache()
+
+
+def check_gelu_fwd(table: KernelTable, gen, rows: int, cols: int, per: int) -> None:
+    """The GELU forward kernel on (rows, cols) bf16 against its plain
+    version (ULP_TOL), timed beside ``F.gelu``, added to ``table`` as
+    ``per`` launches."""
+    x = randn(gen, rows, cols, scale=3.0)
+    y, ref = gelu(x), gelu_reference(x)
+    ulps = bf16_ulp_distance(y, ref)
+    require(ulps <= ULP_TOL, f"gelu {tuple(x.shape)}: {ulps} ulps")
+    ms, lib_ms = kernel_and_library_ms(f"gelu {tuple(x.shape)}", lambda: gelu(x),
+                                       lambda: torch.nn.functional.gelu(x))
+    table.add("gelu", tuple(x.shape), per,
+              (y.float() - ref.float()).abs().max().item(), ms,
+              time_ms(lambda: gelu_reference(x), 5), lib_ms,
+              4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
+
+
+def check_gelu_bwd(table: KernelTable, gen, rows: int, cols: int, per: int) -> None:
+    """The GELU backward kernel on (rows, cols) bf16 against its plain
+    version (ULP_TOL), timed beside ``aten.gelu_backward``, added to
+    ``table`` as ``per`` launches."""
+    x = randn(gen, rows, cols, scale=3.0)
+    dy = randn(gen, rows, cols)
+    dx, ref = gelu_bwd(x, dy), gelu_grad_reference(x, dy)
+    ulps = bf16_ulp_distance(dx, ref)
+    require(ulps <= ULP_TOL, f"gelu bwd {tuple(x.shape)}: {ulps} ulps")
+    ms, lib_ms = kernel_and_library_ms(f"gelu bwd {tuple(x.shape)}",
+                                       lambda: gelu_bwd(x, dy),
+                                       lambda: torch.ops.aten.gelu_backward(dy, x))
+    table.add("gelu_bwd", tuple(x.shape), per,
+              (dx.float() - ref.float()).abs().max().item(), ms,
+              time_ms(lambda: gelu_grad_reference(x, dy), 5), lib_ms,
+              6 * x.numel(), 25 * x.numel(), FP32_FLOPS)
 
 
 def grid_sample_reflect(img: torch.Tensor, coords: torch.Tensor, dtype):
@@ -893,13 +962,14 @@ def grid_sample_reflect(img: torch.Tensor, coords: torch.Tensor, dtype):
 
 
 def check_warp(table: KernelTable, gen, config: str = "v4.json", batch: int = N_AUG,
-               per: int = 1) -> None:
-    """The warp at a train step's shape in bf16 (``config``'s output size,
-    ``batch`` images; ``per`` launches a step), its coordinates from the
+               per: int = 1, over: list[str] = ()) -> None:
+    """The warp at a train step's shape in bf16 (``config``'s output size
+    with ``over`` applied, ``batch`` images; ``per`` launches a step), its
+    coordinates from the
     port's geometry with every probability 1 (flips, rotations and
     distortions fold through the border), and at a small odd shape in f32
     with coordinates far outside the image."""
-    cfg = load_config(os.path.join(REPO, "configs", config)).replace(**ALL_ONES)
+    cfg = load_config(os.path.join(REPO, "configs", config), list(over)).replace(**ALL_ONES)
     g = aug_configs_from(cfg)["geometry"]
     out_hw = tuple(cfg.image_size)
     coords = source_coords(draw_geometry(gen, batch, out_hw, g), NATIVE, out_hw, g)
@@ -1113,12 +1183,13 @@ def check_train_step(cfg) -> dict:
 
 
 def profile_train_step(step, state, batches, step_wall_ms: float,
-                       top: int | None = None) -> float:
+                       top: int | None = None) -> tuple[float, list]:
     """The last of ``batches``' train steps under torch.profiler (the first
     warms the profiler up): its device time by kernel name, printed. The
     device's idle share is taken against ``step_wall_ms``, the wall time of a
     step in the timed run, since the profiler slows the host. Returns the
-    device time of the step in ms."""
+    device time of the step in ms and its kernels as (self device ms, count,
+    name), the longest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1138,7 +1209,7 @@ def profile_train_step(step, state, batches, step_wall_ms: float,
           f"run, device idle {idle:.1%}", flush=True)
     for ms, count, key in rows[:top]:
         print(f"  {ms:9.3f} ms {count:5d}x {key[:100]}", flush=True)
-    return dev_ms
+    return dev_ms, rows
 
 
 def run_train() -> dict:
@@ -1190,7 +1261,7 @@ def run_train() -> dict:
     for name, n in want.items():
         require(launches[name] == n, f"{name}: {launches[name]} launches "
                 f"in {TRAIN_STEPS} steps, expected {n}")
-    dev_ms = profile_train_step(step, state, batches[-2:],
+    dev_ms, _ = profile_train_step(step, state, batches[-2:],
                                 wall * 1e3 / TRAIN_STEPS)
     aug_off_ips = train_rate_without_aug(bundle, cfg, tx, state,
                                          batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS])
@@ -1226,11 +1297,13 @@ def run_train() -> dict:
 
 def time_entry_step(cfg, use_ema: bool = True) -> dict:
     """``make_train_step`` of a train entry's model (ConvNeXt-L on V4,
-    ConvNeXt-B on V2, EfficientNet-B0 on V1 or V2-S on V3.1; aug and mix
-    on, seeded weights; the EMA update with ``use_ema``) alone: the host
-    clock over TRAIN_STEPS steps after TRAIN_WARMUP, then one profiled step,
-    without the loop's loader, validation and checkpoint writes around
-    it."""
+    ConvNeXt-B on V2, EfficientNet-B0 on V1, V2-S on V3.1 or ViT-B/16 on
+    the V2 ensemble; aug and mix on, seeded weights; the EMA update with
+    ``use_ema``) alone: the host clock over TRAIN_STEPS steps after
+    TRAIN_WARMUP, then one profiled step, without the loop's loader,
+    validation and checkpoint writes around it. (``utils/profiler.py:
+    device_ms`` cannot time a whole step: its thousands of launches fill
+    the card's launch queue behind the spin kernel, and the host blocks.)"""
     bundle = train_model(cfg, "cuda")
     tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
     train_step = make_train_step(bundle, cfg, tx, build_criterion(cfg))
@@ -1264,9 +1337,10 @@ def time_entry_step(cfg, use_ema: bool = True) -> dict:
           f"memory {peak_gib:.3f} GiB, launches a step "
           f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }", flush=True)
     step_ms = wall * 1e3 / TRAIN_STEPS
-    dev_ms = profile_train_step(step, state, batches[-2:], step_ms, top=20)
+    dev_ms, rows = profile_train_step(step, state, batches[-2:], step_ms, top=20)
     return {"images_per_s": TRAIN_STEPS * cfg.batch_size / wall, "device_ms": dev_ms,
-            "idle": max(0.0, 1 - dev_ms / step_ms), "peak_mem_gib": peak_gib}
+            "idle": max(0.0, 1 - dev_ms / step_ms), "peak_mem_gib": peak_gib,
+            "wall_ms": step_ms, "kernels": rows}
 
 
 def train_rate_without_aug(bundle, cfg, tx, state, batches) -> float:
@@ -1407,27 +1481,47 @@ def _run_slice(tmp: str) -> dict:
 
 def expected_launches(cfg, steps: int, forwards: int) -> dict:
     """Each kernel's launches in ``steps`` optimizer steps and ``forwards``
-    forwards without gradient of ``cfg``'s ConvNeXt: per microbatch and per
-    forward, every block's depthwise forward and its tail (the block tail
-    kernel where ``block_mlp_available``, else GELU on the composed route);
+    forwards without gradient of ``cfg``'s model (:func:`model_launches`,
+    ``gradient_accumulation_steps`` microbatches a step); per step the aug
+    warps once, and once more for each RandAugment slot."""
+    want = model_launches(cfg, cfg.gradient_accumulation_steps * steps, forwards)
+    want["warp"] = steps * (1 + (cfg.randaugment_num_ops if cfg.use_randaugment else 0))
+    return want
+
+
+def model_launches(cfg, micro: int, forwards: int) -> dict:
+    """Each kernel's launches in ``micro`` microbatches forward and backward
+    and ``forwards`` forwards without gradient of ``cfg``'s model. A ViT:
+    GELU forward in every block's MLP, and its backward per microbatch. A
+    ConvNeXt: per microbatch and per forward, every block's depthwise
+    forward and its tail: the block tail kernel where
+    ``block_mlp_available`` and the block has no drop-path and exact GELU,
+    else the composed route, with the GELU kernel (none with tanh GELU);
     per microbatch every block of a trained stage runs the backward of both,
     the depthwise one as the forward stencil on g (dx) plus the wgrad
     kernel (dw), and the stem and the stages under ``freeze_stages`` run
-    none (nothing before them is trained); per step the aug warps once,
-    and once more for each RandAugment slot."""
+    none (nothing before them is trained). EfficientNet launches none."""
     want = dict.fromkeys(WRAPPERS, 0)
-    want["warp"] = steps * (1 + (cfg.randaugment_num_ops if cfg.use_randaugment else 0))
-    if cfg.model_name not in CONVNEXT_CONFIGS:   # EfficientNet: the warp alone
+    base = cfg.model_name.split(".")[0]
+    if base in VIT_CONFIGS:
+        depth = VIT_CONFIGS[base]["depth"]
+        want["gelu"], want["gelu_bwd"] = depth * (micro + forwards), depth * micro
         return want
-    depths, dims = CONVNEXT_CONFIGS[cfg.model_name]
-    micro = cfg.gradient_accumulation_steps * steps
+    if base not in CONVNEXT_CONFIGS:
+        return want
+    depths, dims = CONVNEXT_CONFIGS[base]
+    rates = drop_path_rates(cfg.drop_path_rate, depths)
     for stage, (d, c) in enumerate(zip(depths, dims)):
-        tail = "block_mlp" if block_mlp_available(c) else "gelu"
-        want["dwconv"] += d * (micro + forwards)
-        want[tail] += d * (micro + forwards)
-        if stage >= cfg.freeze_stages:
-            for name in ("dwconv", "dwconv_bwd", "dwconv_wgrad", f"{tail}_bwd"):
-                want[name] += d * micro
+        for rate in rates[stage]:
+            fused = block_mlp_available(c) and rate == 0 and not cfg.gelu_approximate
+            tails = (["block_mlp"] if fused else
+                     [] if cfg.gelu_approximate else ["gelu"])
+            for name in ["dwconv", *tails]:
+                want[name] += micro + forwards
+            if stage >= cfg.freeze_stages:
+                for name in ("dwconv", "dwconv_bwd", "dwconv_wgrad",
+                             *(f"{t}_bwd" for t in tails)):
+                    want[name] += micro
     return want
 
 
@@ -1556,20 +1650,22 @@ def _run_train_entry(tmp: str, kernels: list[dict]) -> dict:
 
 
 # ---------------------------------------------------------------- V2
-def check_v2_kernels() -> None:
-    """Every kernel of the V2 path at its shapes (batch 64 at 60x80, forward
-    and backward; stage 3 on the composed route), and the warp at the aug's
-    60x80 -> 60x80, 1 + 3 launches a step; printed, with the sums of one
-    optimizer step."""
-    gen = torch.Generator(device="cuda").manual_seed(4321)
+def check_v2_kernels(stage_hw=V2_STAGE_HW, over: list[str] = (), tag: str = "V2",
+                     seed: int = 4321) -> None:
+    """Every kernel of ConvNeXt-B on the V2 path at its shapes (batch 64 on
+    maps of ``stage_hw``, forward and backward; stage 3 on the composed
+    route), and the warp at the aug's 60x80 -> ``over``'s image size, 1 + 3
+    launches a step; printed under ``tag``, with the sums of one optimizer
+    step."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     table = KernelTable()
     depths, dims = CONVNEXT_CONFIGS[V2_MODEL]
-    for stage, (hw, c, depth) in enumerate(zip(V2_STAGE_HW, dims, depths)):
-        print(f"V2 {V2_MODEL} stage {stage} ({hw[0]}x{hw[1]}):", flush=True)
+    for stage, (hw, c, depth) in enumerate(zip(stage_hw, dims, depths)):
+        print(f"{tag} {V2_MODEL} stage {stage} ({hw[0]}x{hw[1]}):", flush=True)
         check_stage(table, gen, stage, hw, c, V2_BATCH, depth, bwd_batch=V2_BATCH)
-    check_warp(table, gen, "v2_convbase.json", V2_BATCH, per=4)
+    check_warp(table, gen, "v2_convbase.json", V2_BATCH, per=4, over=over)
     for e in table.entries(KERNEL_META):
-        print(f"V2 per optimizer step: {e['name']} kernel {e['ms']:.4f} ms, plain "
+        print(f"{tag} per optimizer step: {e['name']} kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms, library "
               f"{'-' if e['library_ms'] is None else format(e['library_ms'], '.4f')} ms, "
               f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})", flush=True)
@@ -2091,6 +2187,243 @@ def _run_effnet(tmp: str, config: str, extra: list[str]) -> dict:
             "step": step, "step_check": check}
 
 
+# ---------------------------------------------------------------- V2 ensemble
+def check_drop_step(cfg, bounds: dict) -> dict:
+    """One optimizer step of ``cfg``'s model with its drop sites live, on
+    REF_BATCH uint8 images: the card in bf16 and in f32 against the host in
+    f32, from the same seeded weights, the same inputs (augmented and mixed
+    once, on the host in f32, from draws made on the card) and the same
+    drop masks; the gradient half (``accumulate_grads``), then the fused
+    clip + AdamW update (``fused_adamw_ema``) from a fresh state at the end
+    of warmup. Each card run's launches must be ``model_launches``' for one
+    microbatch. ``bounds``: run name -> (loss rel, gradient rel L2, update
+    rel L2)."""
+    cfg32 = cfg.replace(compute_dtype="float32")
+    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
+    start = int(STEPS_PER_EPOCH * cfg.epochs * cfg.gradient_accumulation_steps
+                * cfg.warmup_ratio)
+    images, labels = train_inputs(cfg, REF_BATCH, seed=17)
+    draws, x, targets, runs = None, None, None, {}
+    for name, c, device in (("card", cfg, "cuda"), ("card_f32", cfg32, "cuda"),
+                            ("host", cfg32, "cpu")):
+        bundle = train_model(c, device)
+        model = bundle.module
+        if draws is None:
+            draws = draw_train_step(torch.Generator(device="cuda").manual_seed(18),
+                                    tuple(images.shape), cfg, drop_sites(model))
+            x, targets = make_batch_augment(cfg32)(
+                {"image": images, "label": labels}, draws=draws_to(draws, "cpu"))
+        state = create_train_state(model, use_ema=c.use_ema)
+        state.count = state.step = start
+        before = [p.detach().clone() for p in state.params()]
+        reset_launches()
+        grads, m = accumulate_grads(model, c, build_criterion(c), x.to(device),
+                                    targets.to(device), labels.to(device),
+                                    drop=draws_to(draws.drop, device))
+        fused_adamw_ema(grads, state, tx=tx, cfg=c)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            want = model_launches(c, cfg.gradient_accumulation_steps, 0)
+            require(read_launches() == want, f"{c.model_name} {name} step launches "
+                    f"{read_launches()}, expected {want}")
+        runs[name] = {
+            "loss": float(m["loss"]),
+            "grads": [g.float().cpu() for g in grads],
+            "update": [(p.detach() - q).float().cpu()
+                       for p, q in zip(state.params(), before)],
+        }
+        del bundle, model, state, grads, before
+        torch.cuda.empty_cache()
+    host, out = runs["host"], {}
+    for name in ("card", "card_f32"):
+        run = runs[name]
+        out[name] = {"loss_rel": abs(run["loss"] - host["loss"]) / abs(host["loss"]),
+                     "grad_rel_l2": rel_l2(run["grads"], host["grads"]),
+                     "update_rel_l2": rel_l2(run["update"], host["update"])}
+    masks = sum(int(t.numel()) for mb in draws.drop for t in mb)
+    print(f"{cfg.model_name} step with drop sites vs f32 host step ({REF_BATCH} images, "
+          f"{len(draws.drop[0])} sites, {masks} mask entries, lr "
+          f"{tx.schedule(start):.3g}): loss {runs['card']['loss']:.6f} (bf16) / "
+          f"{runs['card_f32']['loss']:.6f} (f32) on the card vs {host['loss']:.6f}; "
+          f"bf16 {out['card']} (bounds {bounds['card']}); f32 {out['card_f32']} "
+          f"(bounds {bounds['card_f32']})", flush=True)
+    for name in ("card", "card_f32"):
+        require(np.isfinite(runs[name]["loss"]), f"non-finite {name} loss")
+        got = out[name]
+        require(all(v <= b for v, b in zip(
+            (got["loss_rel"], got["grad_rel_l2"], got["update_rel_l2"]), bounds[name])),
+            f"{cfg.model_name} {name} step vs f32 host: {got}, bounds {bounds[name]}")
+    return out
+
+
+def attention_in_step(step: dict) -> dict:
+    """ViT-B's attention core (``models/vit.py:attention_core``) in the
+    profiled step's own window (``time_entry_step``): its batched products
+    (CUTLASS's ``align1`` GEMMs: 197 tokens are not a multiple of 8, and
+    every other product of the step runs on cuBLAS's nvjet kernels) and its
+    softmax forward and backward, found by kernel name and dtype (the f32
+    head's product and the loss's log-softmax match the names in f32) and
+    printed; their sum as a share of the step's device time. The core's
+    scale and dropout multiplies run on elementwise kernels that other ops
+    share, and are left out."""
+    rows = [r for r in step["kernels"] if ("align1" in r[2] and "bf16" in r[2])
+            or ("softmax_warp" in r[2] and "BFloat16" in r[2])]
+    ms = sum(r[0] for r in rows)
+    share = ms / step["device_ms"]
+    print(f"{VIT_MODEL} attention core in the profiled step: {ms:.3f} ms of its "
+          f"{step['device_ms']:.3f} ms, {share:.1%}:", flush=True)
+    for r in rows:
+        print(f"  {r[0]:9.3f} ms {r[1]:5d}x {r[2][:100]}", flush=True)
+    return {"ms": ms, "share": share}
+
+
+def run_v2_ensemble() -> dict:
+    """Phase 10: V2's ensemble through ``cli train`` and each member through
+    ``cli predict``; the ViT-B step alone; the ViT-B and drop-path
+    ConvNeXt-B steps against the host; GELU at ViT-B's shape."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v2e_") as tmp:
+        return _run_v2_ensemble(tmp)
+
+
+def _member_probs(cfg, model_name: str, loader) -> np.ndarray:
+    """``predict_ensemble``'s probabilities of one member's saved fold
+    checkpoints (as ``cli predict`` loads them)."""
+    mcfg = cfg.replace(model_name=model_name, ensemble_models=(), ensemble_weights=(),
+                       model_save_path=f"{cfg.model_save_path}/{model_name}")
+    models = []
+    for fold in range(1, V2E_FOLDS + 1):
+        model = create_model(mcfg).module
+        model.load_state_dict(torch.load(cli.checkpoint_path(mcfg.model_save_path, fold),
+                                         map_location="cpu", weights_only=True))
+        models.append(model.to("cuda"))
+    probs = predict_ensemble(models, loader, mcfg)[2]
+    del models
+    torch.cuda.empty_cache()
+    return probs
+
+
+def _run_v2_ensemble(tmp: str) -> dict:
+    check_v2_kernels(V2E_STAGE_HW, V2E_OVERRIDES, "V2 ensemble", seed=4324)
+    torch.cuda.empty_cache()
+    labels = entry_labels()
+    over = [f"train_csv={tmp}/train.csv", f"train_dir={tmp}/train",
+            f"test_csv={tmp}/test.csv", f"test_dir={tmp}/test", f"cache_dir={tmp}/cache",
+            f"model_save_path={tmp}/models", f"output_dir={tmp}/out",
+            f"submission_path={tmp}/submission.csv", *V2E_OVERRIDES]
+    cfg = load_config(V2_CONFIG, over)
+    require(tuple(cfg.ensemble_models) == V2E_MEMBERS
+            and tuple(cfg.ensemble_weights) == V2E_WEIGHTS and cfg.batch_size == V2_BATCH
+            and cfg.use_randaugment and cfg.tta_mode == "flip6"
+            and cfg.mixup_alpha > 0 and cfg.cutmix_alpha > 0,
+            "configs/v2_convbase.json no longer ensembles ConvNeXt-B + ViT-B/16 + "
+            "DeiT-B/16 at .4/.3/.3 with RandAugment, MixUp/CutMix, batch 64, flip6")
+    write_entry_data(cfg, labels)
+
+    # Main path, through the user's entry point. Counters from 0 right before.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["train", "--config", V2_CONFIG, *over])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(cfg.output_dir, "train.log")) as f:
+        log = f.read()
+    require("failed; continuing" not in log, "a V2 ensemble fold failed:\n" + log[-4000:])
+    val_batch = cfg.batch_size * cfg.val_batch_multiplier
+    val_sizes = [len(v) for _, v in stratified_kfold(labels, V2E_FOLDS, cfg.fold_seed)]
+    test_batches = -(-ENTRY_TEST // (cfg.batch_size * cfg.infer_batch_multiplier))
+    want = dict.fromkeys(WRAPPERS, 0)
+    members = {}
+    for m, w in zip(V2E_MEMBERS, V2E_WEIGHTS):
+        require(f"ensemble member: {m} (weight {w:.2f})" in log,
+                f"train.log does not name member {m} with weight {w:.2f}")
+        for fold in range(1, V2E_FOLDS + 1):
+            for fn in (f"best_model_fold{fold}.pt", f"best_loss_model_fold{fold}.pt"):
+                require(os.path.exists(f"{cfg.model_save_path}/{m}/{fn}"), f"no {m}/{fn}")
+        with open(f"{cfg.output_dir}/{m}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        require(len(records) == V2E_FOLDS and all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in records),
+            f"{m}: metrics.jsonl {records}")
+        steps = sum(r["steps"] for r in records)
+        forwards = sum(-(-n // val_batch) for n in val_sizes) + V2E_FOLDS * test_batches
+        for k, n in expected_launches(cfg.replace(model_name=m), steps, forwards).items():
+            want[k] += n
+        members[m] = {"steps": steps, "images_per_s": [r["images_per_sec"] for r in records],
+                      "val_acc": [r["val_acc"] for r in records]}
+        for r in records:
+            print(f"  V2 ensemble {m} fold {r['fold']}: train loss {r['train_loss']:.4f} "
+                  f"val loss {r['val_loss']:.4f} val acc {r['val_acc']:.4f}; "
+                  f"{r['images_per_sec']} images/s, duty cycle {r['duty_cycle']}, "
+                  f"{r['steps']} steps in {r['wall_time_s']} s", flush=True)
+    print(f"V2 ensemble cli train ({', '.join(V2E_MEMBERS)} at 224x224, {V2E_FOLDS} folds "
+          f"x 1 epoch): {train_s:.3f} s, peak memory {peak_gib:.3f} GiB, launches "
+          f"{launches}", flush=True)
+    require(launches == want, f"V2 ensemble launches {launches}, expected {want}")
+    sub = read_submission(cfg.submission_path)
+    require(sub[0] == "id,target" and len(sub) == ENTRY_TEST + 1,
+            f"submission has {len(sub)} lines, header {sub[:1]}")
+
+    # each member alone through cli predict, and its probabilities
+    loader = cli._test_loader(cfg, torch.device("cuda"))
+    mixed = 0.0
+    for m, w in zip(V2E_MEMBERS, V2E_WEIGHTS):
+        out = f"{tmp}/predict_{m}.csv"
+        cli.main(["predict", "--config", V2_CONFIG, "--folds", "1,2", *over,
+                  f"model_name={m}", f"model_save_path={cfg.model_save_path}/{m}",
+                  "ensemble_models=[]", "ensemble_weights=[]", f"submission_path={out}"])
+        rows = read_submission(out)
+        require(rows[0] == "id,predict" and [r.split(",")[0] for r in rows[1:]]
+                == [r.split(",")[0] for r in sub[1:]], f"{m}: cli predict rows {rows[:2]}")
+        probs = _member_probs(cfg, m, loader)
+        require(probs.shape == (ENTRY_TEST, cfg.num_classes)
+                and bool(np.isfinite(probs).all()), f"{m}: probabilities {probs.shape}")
+        require([int(r.split(",")[1]) for r in rows[1:]] == probs.argmax(1).tolist(),
+                f"{m}: cli predict differs from predict_ensemble of its checkpoints")
+        mixed = mixed + w * probs
+    top2 = np.sort(mixed, axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > V2E_PROB_MARGIN
+    ours = np.array([int(r.split(",")[1]) for r in sub[1:]])
+    agree = int((ours == mixed.argmax(1))[decided].sum())
+    print(f"V2 ensemble: each member's cli predict writes {ENTRY_TEST} rows; the train "
+          f"submission is the argmax of .4/.3/.3 x the members' probabilities on "
+          f"{agree}/{int(decided.sum())} decided rows ({ENTRY_TEST} in all)", flush=True)
+    require(agree == int(decided.sum()), "the train submission is not the weighted "
+            "ensemble of its members")
+
+    # the ViT-B step alone, its device time and attention's share
+    vcfg = cfg.replace(model_name=VIT_MODEL)
+    step = time_entry_step(vcfg, use_ema=vcfg.use_ema)
+    attention = attention_in_step(step)
+    torch.cuda.empty_cache()
+    vit_check = check_drop_step(
+        load_config(V2_CONFIG, [*V2E_OVERRIDES, f"model_name={VIT_MODEL}", *VIT_DROP,
+                                f"batch_size={REF_BATCH}"]),
+        {"card": VIT_BOUNDS, "card_f32": VIT_F32_BOUNDS})
+    cnx_check = check_drop_step(
+        load_config(V2_CONFIG, [*V2E_OVERRIDES, "model_name=convnext_base", *CONVNEXT_DROP,
+                                f"batch_size={REF_BATCH}"]),
+        {"card": CONVNEXT_BOUNDS, "card_f32": CONVNEXT_F32_BOUNDS})
+    # GELU at ViT-B's MLP: (64 x 197, 3072), 12 launches each a step
+    table = KernelTable()
+    gen = torch.Generator(device="cuda").manual_seed(4323)
+    rows = V2_BATCH * VIT_TOKENS_224
+    c = VIT_CONFIGS[VIT_MODEL]
+    check_gelu_fwd(table, gen, rows, 4 * c["dim"], c["depth"])
+    check_gelu_bwd(table, gen, rows, 4 * c["dim"], c["depth"])
+    for e in table.entries({k: KERNEL_META[k] for k in ("gelu", "gelu_bwd")}):
+        print(f"{VIT_MODEL} per optimizer step: {e['name']} kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']})", flush=True)
+    return {"train_s": train_s, "peak_mem_gib": peak_gib, "members": members,
+            "step": {k: v for k, v in step.items() if k != "kernels"},
+            "attention": attention, "vit_check": vit_check,
+            "convnext_check": cnx_check}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -2179,6 +2512,19 @@ def main() -> int:
           f"{v31['step']['device_ms']} ms of device time a step, device idle "
           f"{v31['step']['idle']:.1%}, peak memory {v31['step']['peak_mem_gib']} GiB; "
           f"against the f32 host step {v31['step_check']}; on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    v2e = run_v2_ensemble()
+    st = v2e["step"]
+    print(f"V2 ensemble ({' + '.join(V2E_MEMBERS)}, .4/.3/.3, 224x224, batch "
+          f"{V2_BATCH}, RandAugment, MixUp/CutMix, flip6): cli train {v2e['train_s']} s, "
+          f"peak memory {v2e['peak_mem_gib']} GiB, members {v2e['members']}; the "
+          f"{VIT_MODEL} step alone {st['images_per_s']} images/s, "
+          f"{st['device_ms']} ms of device time a step (profiler) in "
+          f"{st['wall_ms']} ms of wall, device idle {st['idle']:.1%}, peak memory "
+          f"{st['peak_mem_gib']} GiB; attention "
+          f"core {v2e['attention']['share']:.1%} of its device time; against the f32 "
+          f"host step {v2e['vit_check']}; {V2_MODEL} with drop-path and dropout "
+          f"against the f32 host step {v2e['convnext_check']}; on {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

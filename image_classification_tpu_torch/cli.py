@@ -7,12 +7,16 @@
         [key=value ...]
 
 ``train`` mirrors the JAX package's ``cli train``: stratified K-fold
-training (``train/kfold.py``), which writes per fold the best-acc and
+training (``train/kfold.py``), or with ``ensemble_models`` the K-fold per
+member (``train_ensemble``, each member under
+``{model_save_path}/{name}`` and ``{output_dir}/{name}``), which writes per
+fold the best-acc and
 best-loss weights (``best_model_fold{k}.pt``, ``best_loss_model_fold{k}.pt``,
 each with a JSON of its metadata) to ``model_save_path`` and
 ``train_state_fold{k}.pt`` plus ``metrics.jsonl`` and ``train.log`` to
 ``output_dir``; then the TTA-ensemble of the folds' best weights on the test
-set, written as ``id,target`` to ``submission_path``. ``--resume`` continues
+set, each fold weighted by its member's weight split over the member's
+folds, written as ``id,target`` to ``submission_path``. ``--resume`` continues
 each fold from its ``train_state_fold{k}.pt``.
 
 ``predict`` mirrors the JAX package's ``cli predict``: it loads one state
@@ -21,6 +25,9 @@ dict per fold from ``{model_save_path}/best_model_fold{k}.pt`` (or
 TTA-ensemble over the test set and writes ``id,predict`` to
 ``submission_path``. ``--best-fold`` keeps only the fold of ``--folds``
 whose stored metric is best (``utils/checkpoint.py:select_best_fold``).
+As in the JAX package it loads ``model_name`` from ``model_save_path``, so
+an ensemble member is scored alone with ``model_name=<name>
+model_save_path=<models>/<name> ensemble_models=[]``.
 
 With ``norm_stats=dataset`` both normalize with the train set's channel
 stats (``data/stats.py``): ``train`` resolves them once and saves
@@ -77,8 +84,10 @@ def cmd_train(args) -> None:
     logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
                 if device.type == "cuda" else "")
     if cfg.ensemble_models:
-        train_ensemble(cfg)
-    results = train_k_fold(cfg, resume=args.resume, device=device)
+        results, ens_weights = train_ensemble(cfg, resume=args.resume, device=device)
+    else:
+        results = train_k_fold(cfg, resume=args.resume, device=device)
+        ens_weights = None
     if not results:
         logger.error("training produced no models")
         sys.exit(1)
@@ -88,15 +97,18 @@ def cmd_train(args) -> None:
 
     if cfg.norm_stats == "dataset":
         # the stats the folds trained with (the JAX package's train entry
-        # predicts its test set with ImageNet's instead)
-        cfg = load_saved_norm_stats(cfg, os.path.join(cfg.model_save_path,
-                                                      NORM_STATS_FILE))
-    # test-set ensemble of the folds' best weights -> submission
+        # predicts its test set with ImageNet's instead); every ensemble
+        # member saved the same ones in its own directory
+        stats_dir = os.path.join(cfg.model_save_path, *cfg.ensemble_models[:1])
+        cfg = load_saved_norm_stats(cfg, os.path.join(stats_dir, NORM_STATS_FILE))
+    # test-set ensemble of the folds' best weights -> submission; each
+    # result's module (its member's architecture) takes its own weights
     models = []
     for r in results:
         r.bundle.module.load_state_dict(r.best_variables, strict=True)
         models.append(r.bundle.module)
-    ids, preds, _ = predict_ensemble(models, _test_loader(cfg, device), cfg)
+    ids, preds, _ = predict_ensemble(models, _test_loader(cfg, device), cfg,
+                                     weights=ens_weights)
     write_submission(ids, preds, cfg.submission_path, column="target")
 
 

@@ -35,9 +35,10 @@ def _cast_inference_params(model: torch.nn.Module, cfg) -> torch.nn.Module:
     f32: 1-D vectors (LN and BN scale and bias, biases, gamma), the
     BatchNorm buffers (not parameters), and ConvNeXt's classifier heads
     ``head.fc`` and ``aux_head*``, which compute in f32. EfficientNet's
-    ``classifier`` weight is cast, as the JAX rule (which spares
-    ``head_fc`` and ``aux_head*`` only) casts its kernel; it still computes
-    in f32, on the bf16-rounded weight."""
+    ``classifier`` weight and ViT's ``head.weight`` are cast, as the JAX
+    rule (which spares ``head_fc`` and ``aux_head*`` only) casts their
+    kernels; they still compute in f32, on the bf16-rounded weight. ViT's
+    ``cls_token`` and ``pos_embed`` (3-D) are cast, as in JAX."""
     if cfg.compute_dtype != "bfloat16" or not cfg.infer_cast_params:
         return model
     for name, p in model.named_parameters():

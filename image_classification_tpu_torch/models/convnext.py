@@ -11,23 +11,36 @@ and a global-average-pool -> LN -> Linear head. Parameter names are timm's
 
 In each block the depthwise conv runs ``ops.depthwise_conv7x7``; the tail runs
 the fused ``ops.block_mlp`` where ``block_mlp_available(C)`` (stages 0-2 of
-ConvNeXt-B), else LN, ``torch.matmul``, ``ops.gelu``, ``torch.matmul``, layer
-scale and residual, in the working dtype like the flax layers. Under autograd
-the three kernel ops run as ``torch.autograd.Function``s whose backwards are
-kernels too; the stem, downsamples, LayerNorms, pooling, the stage-3 matmuls
-(left to XLA in the JAX package as well) and the heads are plain autograd.
+ConvNeXt-B) and the block has no drop-path and exact GELU, else the composed
+route (JAX ``convnext.py:136-141``): LN, ``torch.matmul``, GELU,
+``torch.matmul``, layer scale, the view back to (B, H, W, C), ``DropPath``
+(one mask entry per sample) and the residual, in the working dtype like the
+flax layers. Its GELU is ``ops.gelu`` (exact, the A&S erf) or, with
+``gelu_approximate``, tanh GELU (``jax.nn.gelu(approximate=True)``), a plain
+op in both packages. Drop-path rates rise linearly over all blocks
+(``layers.drop_path_rates``), so block 0 (rate 0) keeps the fused tail; the
+head applies ``Dropout(drop_rate)`` between its LN and its classifier.
+Under autograd the three kernel ops run as ``torch.autograd.Function``s
+whose backwards are kernels too; the stem, downsamples, LayerNorms, pooling,
+the composed route's matmuls (left to XLA in the JAX package as well) and
+the heads are plain autograd.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from image_classification_tpu_torch.models.layers import (
+    Dropout,
+    DropPath,
     LayerNorm,
     PatchConv,
+    drop_path_rates,
+    dense,
     global_avg_pool,
-    lecun_normal_,
+    init_flax_,
 )
 from image_classification_tpu_torch.ops import (
     block_mlp,
@@ -71,25 +84,28 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(4 * dim, dim)
 
 
-def _dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
-    """flax nn.Dense in x's dtype: the product is rounded, then the bias is
-    added."""
-    return torch.matmul(x, fc.weight.to(x.dtype).t()) + fc.bias.to(x.dtype)
-
-
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, dim: int, layer_scale_init: float = 1e-6):
+    def __init__(self, dim: int, layer_scale_init: float = 1e-6,
+                 drop_path: float = 0.0, gelu_approximate: bool = False):
         super().__init__()
+        self.gelu_approximate = gelu_approximate
         self.conv_dw = DepthwiseConv(dim)
         self.norm = LayerNorm(dim)
         self.mlp = Mlp(dim)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
+        self.drop_path = DropPath(drop_path)
+
+    @property
+    def fused(self) -> bool:
+        """Whether the tail runs the fused kernel (JAX's routing)."""
+        return (block_mlp_available(self.gamma.shape[0]) and self.drop_path.rate == 0.0
+                and not self.gelu_approximate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
         y = self.conv_dw(x)
         shape, c = y.shape, y.shape[-1]
-        if block_mlp_available(c):
+        if self.fused:
             out = block_mlp(
                 y.reshape(-1, c), shortcut.reshape(-1, c),
                 self.norm.weight, self.norm.bias,
@@ -97,33 +113,37 @@ class ConvNeXtBlock(nn.Module):
                 self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma, 1e-6,
             )
             return out.view(shape)
-        h = self.norm(y.reshape(-1, c))
-        h = gelu(_dense(h, self.mlp.fc1))
-        h = _dense(h, self.mlp.fc2) * self.gamma.to(h.dtype)
-        return shortcut + h.view(shape)
+        h = dense(self.norm(y.reshape(-1, c)), self.mlp.fc1)
+        h = F.gelu(h, approximate="tanh") if self.gelu_approximate else gelu(h)
+        h = dense(h, self.mlp.fc2) * self.gamma.to(h.dtype)
+        return shortcut + self.drop_path(h.view(shape))
 
 
 class Stage(nn.Module):
-    def __init__(self, cin: int, dim: int, depth: int, downsample: bool):
+    def __init__(self, cin: int, dim: int, drop_paths: list[float], downsample: bool,
+                 gelu_approximate: bool = False):
         super().__init__()
         self.downsample = (
             nn.Sequential(LayerNorm(cin), PatchConv(cin, dim, 2))
             if downsample else nn.Identity()
         )
-        self.blocks = nn.Sequential(*[ConvNeXtBlock(dim) for _ in range(depth)])
+        self.blocks = nn.Sequential(*[
+            ConvNeXtBlock(dim, drop_path=rate, gelu_approximate=gelu_approximate)
+            for rate in drop_paths])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.blocks(self.downsample(x))
 
 
 class Head(nn.Module):
-    def __init__(self, dim: int, num_classes: int):
+    def __init__(self, dim: int, num_classes: int, drop_rate: float = 0.0):
         super().__init__()
         self.norm = LayerNorm(dim)
+        self.drop = Dropout(drop_rate, dim)
         self.fc = nn.Linear(dim, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm(global_avg_pool(x))
+        x = self.drop(self.norm(global_avg_pool(x)))
         # the classifier runs in f32 (models/convnext.py head_fc, dtype f32)
         return torch.matmul(x.float(), self.fc.weight.float().t()) + self.fc.bias.float()
 
@@ -136,16 +156,20 @@ class ConvNeXt(nn.Module):
     def __init__(self, num_classes: int = 44,
                  depths: tuple[int, ...] = (3, 3, 27, 3),
                  dims: tuple[int, ...] = (128, 256, 512, 1024),
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 gelu_approximate: bool = False):
         super().__init__()
         self.dims = tuple(dims)
         self.dtype = dtype
         self.stem = nn.Sequential(PatchConv(3, dims[0], 4), LayerNorm(dims[0]))
+        dp = drop_path_rates(drop_path_rate, tuple(depths))
         self.stages = nn.ModuleList(
-            Stage(dims[max(i - 1, 0)], dims[i], depths[i], downsample=i > 0)
+            Stage(dims[max(i - 1, 0)], dims[i], dp[i], downsample=i > 0,
+                  gelu_approximate=gelu_approximate)
             for i in range(len(depths))
         )
-        self.head = Head(dims[-1], num_classes)
+        self.head = Head(dims[-1], num_classes, drop_rate)
 
     @property
     def feature_dims(self) -> tuple[int, ...]:
@@ -163,29 +187,16 @@ class ConvNeXt(nn.Module):
 
 
 def init_convnext_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax's initialisation, in place: lecun-normal kernels, zero biases,
-    unit LN scales, gamma at its layer-scale init. Covers any module tree of
-    this package (the deep-supervision heads included)."""
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            lecun_normal_(mod.weight, mod.in_features, generator)
-            nn.init.zeros_(mod.bias)
-        elif isinstance(mod, (PatchConv, DepthwiseConv)):
-            w = mod.weight
-            lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], generator)
-            nn.init.zeros_(mod.bias)
-        elif isinstance(mod, LayerNorm):
-            nn.init.ones_(mod.weight)
-            nn.init.zeros_(mod.bias)
-    return model
+    """flax's initialisation, in place (``layers.init_flax_``), the depthwise
+    convs included; gamma keeps its layer-scale init."""
+    return init_flax_(model, generator, (PatchConv, DepthwiseConv))
 
 
-def build_convnext(name: str, num_classes: int,
-                   dtype: torch.dtype = torch.bfloat16) -> ConvNeXt:
+def build_convnext(name: str, num_classes: int, **kwargs) -> ConvNeXt:
     base = name.split(".")[0]
     for suffix in ("_in22k", "_in1k", "_384"):
         base = base.replace(suffix, "")
     if base not in CONVNEXT_CONFIGS:
         raise ValueError(f"Unknown ConvNeXt variant: {name}")
     depths, dims = CONVNEXT_CONFIGS[base]
-    return ConvNeXt(num_classes=num_classes, depths=depths, dims=dims, dtype=dtype)
+    return ConvNeXt(num_classes=num_classes, depths=depths, dims=dims, **kwargs)

@@ -1,7 +1,11 @@
 """Deep supervision wrapper, port of
-``image_classification_tpu/models/deep_supervision.py``: the backbone's
-stage 1..3 outputs each get a global-average-pool -> Linear head, computed in
-f32 on the f32 pooled features. Forward returns ``(logits, aux0, aux1, aux2)``.
+``image_classification_tpu/models/deep_supervision.py``: each of the
+backbone's taps (ConvNeXt's and EfficientNet's last three stage outputs,
+ViT's token sequences after its tap blocks) gets a pool -> Linear head,
+computed in f32 on the f32 pooled features: a global average pool of a
+(B, H, W, C) map, the mean over tokens of a (B, N, D) sequence, each summed
+in f32 and rounded to the features' dtype (``jnp.mean``). Forward returns
+``(logits, aux0, aux1, ...)``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ class DeepSupervisionModel(nn.Module):
         outs = [logits]
         for i, f in enumerate(feats):
             head = getattr(self, f"aux_head{i}")
-            pooled = global_avg_pool(f).float()
+            pooled = (global_avg_pool(f) if f.dim() == 4
+                      else f.float().mean(dim=1).to(f.dtype)).float()
             outs.append(torch.matmul(pooled, head.weight.float().t())
                         + head.bias.float())
         return tuple(outs)

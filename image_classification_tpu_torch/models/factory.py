@@ -1,6 +1,6 @@
-"""Model factory, port of ``image_classification_tpu/models/factory.py`` for
-the ConvNeXt and EfficientNet families. ViT is not ported yet (ROADMAP
-queue A)."""
+"""Model factory, port of ``image_classification_tpu/models/factory.py``:
+the ConvNeXt, EfficientNet and ViT/DeiT families, each optionally wrapped
+for deep supervision."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from image_classification_tpu_torch.models.efficientnet import (
     build_efficientnet,
     init_efficientnet_,
 )
+from image_classification_tpu_torch.models.vit import VIT_CONFIGS, build_vit, init_vit_
 
 logger = logging.getLogger("ic_tpu_torch")
 
@@ -39,7 +40,8 @@ def _family(name: str) -> str:
 
 
 def list_models() -> list[str]:
-    return sorted(CONVNEXT_CONFIGS) + sorted(EFFNET_V1_SCALING) + ["tf_efficientnetv2_s"]
+    return (sorted(CONVNEXT_CONFIGS) + sorted(EFFNET_V1_SCALING)
+            + ["tf_efficientnetv2_s"] + sorted(VIT_CONFIGS))
 
 
 @dataclass
@@ -61,28 +63,25 @@ def create_model(cfg, model_name: str | None = None,
     omitted). Move it with ``.to(device)``. It is returned in eval mode; the
     train step puts it in train mode (EfficientNet's BatchNorm, dropout and
     drop-path act only there). Like the JAX factory, it passes
-    ``cfg.drop_rate`` itself, so a V1 model trains without head dropout
-    unless the config sets one."""
+    ``cfg.drop_rate`` and ``cfg.drop_path_rate`` itself, so a V1 model
+    trains without head dropout unless the config sets one. A ViT sizes its
+    position embedding from ``cfg.image_size`` and raises ``ValueError``
+    where that is not a multiple of its patch (V2's 60x80)."""
     name = model_name or cfg.model_name
     family = _family(name)
-    if family == "vit":
-        raise NotImplementedError(f"{name}: ViT is not ported (ROADMAP queue A)")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    kwargs = dict(drop_rate=cfg.drop_rate, drop_path_rate=cfg.drop_path_rate,
+                  dtype=dtype)
     if family == "efficientnet":
-        module: nn.Module = build_efficientnet(
-            name, cfg.num_classes, drop_rate=cfg.drop_rate,
-            drop_path_rate=cfg.drop_path_rate, dtype=dtype)
+        module: nn.Module = build_efficientnet(name, cfg.num_classes, **kwargs)
         init = init_efficientnet_
+    elif family == "vit":
+        module = build_vit(name, cfg.num_classes, image_size=tuple(cfg.image_size),
+                           **kwargs)
+        init = init_vit_
     else:
-        if cfg.drop_path_rate > 0 or cfg.drop_rate > 0:
-            raise NotImplementedError(
-                "ConvNeXt with drop_path_rate > 0 or drop_rate > 0 is not ported: "
-                "the JAX model then leaves its block-tail kernel "
-                "(ROADMAP queue A, item 3)")
-        if cfg.gelu_approximate:
-            raise NotImplementedError("tanh GELU (gelu_approximate=true) is not "
-                                      "ported; the block-tail kernel is exact GELU")
-        module = build_convnext(name, cfg.num_classes, dtype=dtype)
+        module = build_convnext(name, cfg.num_classes,
+                                gelu_approximate=cfg.gelu_approximate, **kwargs)
         init = init_convnext_
     deep = bool(cfg.use_deep_supervision)
     if deep:

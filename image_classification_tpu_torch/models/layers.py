@@ -5,11 +5,12 @@ Every module keeps f32 parameters (or the bf16 ones ``infer/predict.py``
 casts to) and casts them to the activation's dtype at use.
 
 Random masks are explicit draws, as the augmentation's are
-(``aug/draws.py``): in train mode each ``DropPath`` and ``Dropout`` with a
-positive rate applies the keep-mask it was handed (:func:`drop_sites`,
-:func:`draw_drop_masks`, :func:`drop_masks`), and refuses to run without
-one. JAX's ``make_rng("dropout")`` keys cannot be reproduced in torch, so
-tests hand both sides the same masks. In eval mode both are the identity.
+(``aug/draws.py``): in train mode each ``DropPath``, ``Dropout`` and
+``AttentionDropout`` with a positive rate applies the keep-mask it was
+handed (:func:`drop_sites`, :func:`draw_drop_masks`, :func:`drop_masks`),
+and refuses to run without one. JAX's ``make_rng("dropout")`` keys cannot
+be reproduced in torch, so tests hand both sides the same masks. In eval
+mode each is the identity.
 """
 
 from __future__ import annotations
@@ -96,6 +97,32 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
     with torch.no_grad():
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
+
+
+def dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
+    """flax Dense / DenseGeneral in x's dtype: the product is rounded, then
+    the bias is added."""
+    return torch.matmul(x, fc.weight.to(x.dtype).t()) + fc.bias.to(x.dtype)
+
+
+def init_flax_(model: nn.Module, generator: torch.Generator,
+               convs: tuple[type, ...] = (PatchConv,)) -> nn.Module:
+    """flax's initialisation of a ConvNeXt or ViT module tree, in place:
+    lecun-normal Dense kernels (fan-in: the Linear's in-features) and conv
+    kernels of the types in ``convs`` (fan-in kh·kw·cin), zero biases, unit
+    LN scales. Covers the deep-supervision heads too."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            lecun_normal_(mod.weight, mod.in_features, generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, convs):
+            w = mod.weight
+            lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    return model
 
 
 # --------------------------------------------------------------- BatchNorm
@@ -267,8 +294,11 @@ class _Masked(nn.Module):
             raise RuntimeError(
                 f"{type(self).__name__}(rate={self.rate}) in train mode needs its "
                 "keep-mask: draw it with draw_drop_masks and apply it with drop_masks")
+        return self.apply_mask(x, self.mask)
+
+    def apply_mask(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         keep = float(torch.tensor(1.0 - self.rate, dtype=x.dtype))
-        mask = self.mask.reshape(*self.mask.shape, *[1] * (x.dim() - self.mask.dim()))
+        mask = mask.reshape(*mask.shape, *[1] * (x.dim() - mask.dim()))
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -281,14 +311,37 @@ class DropPath(_Masked):
 
 
 class Dropout(_Masked):
-    """flax ``nn.Dropout`` on (B, features): one mask entry per element."""
+    """flax ``nn.Dropout`` on (B, *features): one mask entry per element
+    (``features`` an int for (B, C) rows, a tuple for ViT's (B, N, D)
+    tokens)."""
 
-    def __init__(self, rate: float, features: int):
+    def __init__(self, rate: float, features: int | tuple[int, ...]):
         super().__init__(rate)
-        self.features = features
+        self.features = (features,) if isinstance(features, int) else tuple(features)
 
     def mask_shape(self, rows: int) -> tuple[int, ...]:
-        return (rows, self.features)
+        return (rows, *self.features)
+
+
+class AttentionDropout(_Masked):
+    """flax's attention-weight dropout (``dot_product_attention_weights``
+    with ``broadcast_dropout=True``): one (1, 1, N, N) keep-mask shared by
+    every sample and head, applied as ``weights * (keep / keep_prob)`` with
+    the multiplier computed in the weights' dtype, not as ``where``."""
+
+    def __init__(self, rate: float, tokens: int):
+        super().__init__(rate)
+        self.tokens = tokens
+
+    def mask_shape(self, rows: int) -> tuple[int, ...]:
+        return (1, 1, self.tokens, self.tokens)
+
+    def apply_mask(self, w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        # keep / keep_prob in the dtype: 0, or 1 / keep_prob with keep_prob
+        # rounded first and the quotient rounded again (exact in the dtype)
+        inv = float(torch.tensor(1.0, dtype=w.dtype)
+                    / torch.tensor(1.0 - self.rate, dtype=w.dtype))
+        return w * (mask.to(w.dtype) * inv)
 
 
 def drop_path_rates(total: float, depths: tuple[int, ...]) -> list[list[float]]:
@@ -304,8 +357,11 @@ def drop_path_rates(total: float, depths: tuple[int, ...]) -> list[list[float]]:
 
 
 def drop_sites(model: nn.Module) -> list[_Masked]:
-    """The model's DropPath and Dropout layers with a positive rate, in the
-    order the forward runs them (blocks, then the head)."""
+    """The model's DropPath, Dropout and AttentionDropout layers with a
+    positive rate, in the order the forward runs them, which is the order
+    JAX draws their keys: ConvNeXt's and EfficientNet's blocks, then the
+    head; ViT's token dropout, then per block the attention dropout and the
+    two DropPaths. Each model registers its sites in that order."""
     return [m for m in model.modules() if isinstance(m, _Masked) and m.rate > 0]
 
 

@@ -18,6 +18,15 @@ deep supervision the tree's ``backbone`` and ``aux_head{i}`` map as for
 ConvNeXt. Without ``batch_stats`` only the parameters' keys are written
 (for trees shaped like the parameters: EMA, Adam's moments, SWA).
 
+``vit_state_dict_from_jax(params)`` does the same for a ViT/DeiT: the
+inverse of the JAX package's ``import_vit`` (timm's keys, the query, key and
+value kernels (D, heads, head_dim) fused into ``attn.qkv`` (3·D, D) and
+their biases into ``attn.qkv.bias``, the output kernel (heads, head_dim, D)
+into ``attn.proj.weight``, the patch conv HWIO -> OIHW and the Dense
+kernels (in, out) -> (out, in)); depth is read from the tree.
+``state_dict_from_jax`` picks the carrier by the tree (a ``cls_token``: a
+ViT; a stem BatchNorm: an EfficientNet; else a ConvNeXt).
+
 ``load_pretrained_into(model, cfg)`` imports a local timm-keyed checkpoint
 file (``cfg.pretrained_path``) into a freshly initialised model, as the JAX
 package's ``load_checkpoint_into_variables`` does: nested
@@ -51,8 +60,9 @@ import torch
 logger = logging.getLogger("ic_tpu_torch")
 
 # The final classifier's keys (what timm strips when num_classes differs):
-# ConvNeXt's and EfficientNet's.
-_HEAD_KEYS = ("head.fc.weight", "head.fc.bias", "classifier.weight", "classifier.bias")
+# ConvNeXt's, EfficientNet's and ViT's.
+_HEAD_KEYS = ("head.fc.weight", "head.fc.bias", "classifier.weight", "classifier.bias",
+              "head.weight", "head.bias")
 
 
 def _conv(w) -> np.ndarray:  # flax HWIO -> torch OIHW
@@ -160,6 +170,43 @@ def _effnet_backbone(p: Mapping[str, Any],
     return sd
 
 
+def _vit_backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """The inverse of JAX ``import_vit``: timm's keys and layouts."""
+    sd = {
+        "cls_token": _vec(p["cls_token"]),
+        "pos_embed": _vec(p["pos_embed"]),
+        "patch_embed.proj.weight": _conv(p["patch_embed"]["kernel"]),
+        "patch_embed.proj.bias": _vec(p["patch_embed"]["bias"]),
+        "norm.weight": _vec(p["norm"]["scale"]),
+        "norm.bias": _vec(p["norm"]["bias"]),
+        "head.weight": _linear(p["head"]["kernel"]),
+        "head.bias": _vec(p["head"]["bias"]),
+    }
+    i = 0
+    while f"block{i}" in p:
+        b, tp = p[f"block{i}"], f"blocks.{i}"
+        attn = b["attn"]
+        dim = np.shape(attn["query"]["kernel"])[0]
+        # (D, heads, hd) each -> (D, 3 D) with columns q | k | v -> (3 D, D)
+        sd[f"{tp}.attn.qkv.weight"] = _linear(np.concatenate(
+            [np.asarray(attn[n]["kernel"], np.float32).reshape(dim, -1)
+             for n in ("query", "key", "value")], axis=1))
+        sd[f"{tp}.attn.qkv.bias"] = np.concatenate(
+            [_vec(attn[n]["bias"]).reshape(-1) for n in ("query", "key", "value")])
+        # (heads, hd, D) -> (D_in, D) -> (D, D_in)
+        sd[f"{tp}.attn.proj.weight"] = _linear(
+            np.asarray(attn["out"]["kernel"], np.float32).reshape(-1, dim))
+        sd[f"{tp}.attn.proj.bias"] = _vec(attn["out"]["bias"])
+        for norm in ("norm1", "norm2"):
+            sd[f"{tp}.{norm}.weight"] = _vec(b[norm]["scale"])
+            sd[f"{tp}.{norm}.bias"] = _vec(b[norm]["bias"])
+        for fc in ("fc1", "fc2"):
+            sd[f"{tp}.mlp.{fc}.weight"] = _linear(b[f"mlp_{fc}"]["kernel"])
+            sd[f"{tp}.mlp.{fc}.bias"] = _vec(b[f"mlp_{fc}"]["bias"])
+        i += 1
+    return sd
+
+
 def _with_heads(params: Mapping[str, Any], backbone) -> dict[str, np.ndarray]:
     """A deep-supervised tree (``backbone`` + ``aux_head{i}``) or a bare
     backbone, through ``backbone(tree)``."""
@@ -196,12 +243,21 @@ def efficientnet_state_dict_from_jax(
     return _tensors(_with_heads(params, lambda p: _effnet_backbone(p, batch_stats)))
 
 
+def vit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's state dict for a flax ViT/DeiT ``params`` tree (any tree
+    of that shape), deep-supervision heads included."""
+    return _tensors(_with_heads(params, _vit_backbone))
+
+
 def state_dict_from_jax(params: Mapping[str, Any],
                         batch_stats: Mapping[str, Any] | None = None
                         ) -> dict[str, torch.Tensor]:
-    """The carrier for the tree's family (an EfficientNet has a stem
-    BatchNorm, ConvNeXt a stem LayerNorm)."""
-    if "stem_bn" in params.get("backbone", params):
+    """The carrier for the tree's family (a ViT has a ``cls_token``, an
+    EfficientNet a stem BatchNorm, ConvNeXt a stem LayerNorm)."""
+    tree = params.get("backbone", params)
+    if "cls_token" in tree:
+        return vit_state_dict_from_jax(params)
+    if "stem_bn" in tree:
         return efficientnet_state_dict_from_jax(params, batch_stats)
     return convnext_state_dict_from_jax(params)
 

@@ -14,8 +14,15 @@ ImageSource``, from the JPEG files under ``train_dir``), into the decode
 cache under ``cache_dir`` with ``use_decode_cache`` (reused when it is
 complete) or else in memory; folds index into them.
 
-Not ported, each raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
-queue A, item 6) and ``train_ensemble`` (ViT, queue A, item 4).
+``train_ensemble`` runs the whole K-fold loop once per member of
+``ensemble_models`` (e.g. V2's ConvNeXt-B + ViT-B/16 + DeiT-B/16), each
+under ``{model_save_path}/{name}`` and ``{output_dir}/{name}``, and weights
+each fold result by its member's weight split evenly over the member's
+surviving folds. A member whose folds all fail (a ViT at a size that is not
+a multiple of its patch, as V2's 60x80) leaves no result and no weight.
+
+Not ported, raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
+queue A, item 6).
 """
 
 from __future__ import annotations
@@ -137,7 +144,28 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
     return results
 
 
-def train_ensemble(cfg, *args, **kwargs):
-    raise NotImplementedError("train_ensemble: the multi-architecture ensemble "
-                              "needs ViT, which is not ported (ROADMAP queue A, "
-                              "item 4)")
+def train_ensemble(cfg, resume: bool = False, device: str | torch.device = "cuda"
+                   ) -> tuple[list[FoldResult], list[float]]:
+    """Multi-architecture ensemble training (JAX ``train_ensemble``): the
+    full K-fold per member of ``cfg.ensemble_models`` (or ``model_name``
+    alone), weights ``cfg.ensemble_weights`` (default 1 each); returns all
+    fold results and one weight per result, its member's weight over
+    ``max(1, the member's result count)``."""
+    names = list(cfg.ensemble_models) or [cfg.model_name]
+    arch_weights = list(cfg.ensemble_weights) or [1.0] * len(names)
+    if len(arch_weights) != len(names):
+        raise ValueError("ensemble_weights length must match ensemble_models")
+    manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
+    source = build_source(cfg, manifest, cfg.train_dir)
+    results: list[FoldResult] = []
+    weights: list[float] = []
+    for name, aw in zip(names, arch_weights):
+        logger.info("ensemble member: %s (weight %.2f)", name, aw)
+        arch_cfg = cfg.replace(model_name=name,
+                               model_save_path=f"{cfg.model_save_path}/{name}",
+                               output_dir=f"{cfg.output_dir}/{name}")
+        arch_results = train_k_fold(arch_cfg, manifest=manifest, source=source,
+                                    resume=resume, device=device)
+        results.extend(arch_results)
+        weights.extend([aw / max(1, len(arch_results))] * len(arch_results))
+    return results, weights

@@ -89,7 +89,8 @@ def draw_train_step(generator: torch.Generator, shape, cfg, sites=()) -> StepDra
     W, C), on ``generator``'s device: with ``aug_enabled=true`` the
     augmentation's, then the mix's; then for each of the
     ``gradient_accumulation_steps`` microbatches one keep-mask per drop site
-    (``sites``: ``layers.drop_sites(model)``; none for ConvNeXt)."""
+    (``sites``: ``layers.drop_sites(model)``, in JAX's draw order; none
+    for a ConvNeXt or ViT without drop rates)."""
     aug_d = mix_d = None
     if cfg.aug_enabled:
         aug = aug_configs_from(cfg)

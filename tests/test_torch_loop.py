@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from image_classification_tpu.core.config import Config as JaxConfig
 from image_classification_tpu.data import DataLoader as JaxLoader
@@ -41,6 +42,7 @@ from image_classification_tpu_torch.core.config import Config, load_config
 from image_classification_tpu_torch.data import Manifest, save_decode_cache
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model, load_pretrained_into
+from image_classification_tpu_torch.models.layers import drop_sites
 from image_classification_tpu_torch.models.pretrained import convnext_state_dict_from_jax
 from image_classification_tpu_torch.train import kfold
 from image_classification_tpu_torch.train.loop import progressive_size, train_fold
@@ -326,18 +328,66 @@ def test_progressive_size_matches_jax(epoch):
     {"fold_parallel": True}, {"gelu_approximate": True},
     {"drop_path_rate": 0.1}, {"ensemble_models": ("convnext_atto",)},
 ])
-def test_what_is_not_ported_raises(runs, over):
+def test_what_is_not_ported_raises(runs, over, tmp_path):
+    """``fold_parallel`` still raises. Tanh GELU, ConvNeXt's drop-path and
+    the ensemble trainer are ported: tanh GELU trains fold 1 as JAX's
+    ``train_fold`` does; a drop-path fold trains (finite losses) and draws
+    one mask a step for each draw JAX's traced train-mode forward asks
+    for, in its shapes; an ensemble of one member trains the K folds of
+    ``runs``' JAX ``train_k_fold`` under ``<models>/<member>``, with JAX's
+    ``train_ensemble`` weights (1 / the member's result count)."""
     kw = {**settings(runs["root"], "x", epochs=1), **over}
     cfg = Config(**kw).validate()
-    if "ensemble_models" in over:
-        with pytest.raises(NotImplementedError):
-            kfold.train_ensemble(cfg)
-    elif "drop_path_rate" in over or "gelu_approximate" in over:
-        with pytest.raises(NotImplementedError):
-            train_fold(cfg, *_fold_loaders(cfg, runs["root"]))
-    else:
+    if "fold_parallel" in over:
         with pytest.raises(NotImplementedError):
             kfold.train_k_fold(cfg, device="cpu")
+    elif "gelu_approximate" in over:
+        jkw = {**kw, "model_save_path": f"{tmp_path}/jax/m", "output_dir": f"{tmp_path}/jax/o"}
+        jcfg = JaxConfig(**jkw).validate()
+        ours = train_fold(cfg, *_fold_loaders(cfg, runs["root"]))
+        manifest = JaxManifest.from_csv(jcfg.train_csv, num_classes=NUM_CLASSES)
+        train_idx, val_idx = next(kfold.stratified_kfold(manifest.labels, 2, 42))
+        loaders = jax_make_fold_loaders(jcfg, JaxArraySource(runs["train_images"]),
+                                        manifest, train_idx, val_idx)
+        theirs = jax_train_fold(jcfg, loaders[0], loaders[1], fold=1)
+        assert len(ours.history) == len(theirs.history) == 1
+        for key in ("train_loss", "val_loss"):
+            assert ours.history[0][key] == pytest.approx(theirs.history[0][key], rel=REL)
+        assert ours.best_val_acc == theirs.best_val_acc
+    elif "drop_path_rate" in over:
+        ours = train_fold(cfg, *_fold_loaders(cfg, runs["root"]))
+        assert np.isfinite([ours.history[0]["train_loss"], ours.history[0]["val_loss"]]).all()
+        shapes = []
+
+        def record(key, p=0.5, shape=None, **_):
+            shapes.append(tuple(shape))
+            return jnp.ones(shape, bool)
+
+        jcfg = JaxConfig(**kw).validate()
+        bundle = jax_create_model(jcfg)
+        micro = cfg.batch_size // cfg.gradient_accumulation_steps
+        x = jnp.zeros((micro, SIZE, SIZE, 3))
+        real = jax.random.bernoulli
+        jax.random.bernoulli = record
+        try:
+            jax.eval_shape(lambda v: bundle.apply(v, x, deterministic=False,
+                                                  rngs={"dropout": jax.random.key(0)}),
+                           jax.eval_shape(bundle.init, jax.random.key(0)))
+        finally:
+            jax.random.bernoulli = real
+        sites = drop_sites(ours.bundle.module)
+        assert [s.mask_shape(micro) for s in sites] == \
+            [(micro,) if len(sh) == 4 else sh for sh in shapes]
+    else:
+        results, weights = kfold.train_ensemble(cfg.replace(epochs=EPOCHS), device="cpu")
+        assert [r.fold for r in results] == [r.fold for r in runs["jax"]]
+        assert weights == [1.0 / len(runs["jax"])] * len(runs["jax"])
+        for mine, theirs in zip(results, runs["jax"]):
+            assert mine.bundle.name == "convnext_atto"
+            for m, h in zip(mine.history, theirs.history, strict=True):
+                assert m["val_loss"] == pytest.approx(h["val_loss"], rel=REL)
+            assert os.path.exists(ckpt.best_path(f"{kw['model_save_path']}/convnext_atto",
+                                                 mine.fold))
 
 
 def _swa_lines(caplog) -> list[tuple[float, float]]:

@@ -25,6 +25,8 @@ import jax.numpy as jnp
 
 from image_classification_tpu.core.config import Config as JaxConfig
 from image_classification_tpu.models.factory import ModelBundle as JaxBundle
+from image_classification_tpu.models.factory import create_model as jax_create_model
+from image_classification_tpu.models.layers import drop_path_rates as jax_drop_path_rates
 from image_classification_tpu.train import loss as jax_loss
 from image_classification_tpu.train.fused import _rebuild_opt_state
 from image_classification_tpu.train.fused import fused_adamw_ema as jax_fused
@@ -40,7 +42,11 @@ from image_classification_tpu.utils import metrics as jax_metrics
 from image_classification_tpu_torch.core.config import Config
 from image_classification_tpu_torch.models import ConvNeXt, DeepSupervisionModel
 from image_classification_tpu_torch.models.factory import ModelBundle, create_model
-from image_classification_tpu_torch.models.pretrained import train_state_from_jax
+from image_classification_tpu_torch.models.layers import drop_sites
+from image_classification_tpu_torch.models.pretrained import (
+    state_dict_from_jax,
+    train_state_from_jax,
+)
 from image_classification_tpu_torch.train import loss
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
@@ -325,7 +331,7 @@ def test_plateau_scheduler_matches_jax():
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    _, cfg = both_cfgs()
+    jcfg, cfg = both_cfgs()
     # the plateau schedule is ported: a constant LR that the trainer resets
     plateau = build_optimizer(cfg.replace(schedule="plateau"), 1e-3)
     assert plateau.schedule(7) == 1e-3
@@ -335,10 +341,21 @@ def test_optimizer_refuses_what_is_not_ported():
     assert frozen.freeze_stages == 1 and frozen.schedule(7) == 5e-4
     with pytest.raises(ValueError):
         build_optimizer(cfg.replace(optimizer="sgd"), 1e-3)
-    with pytest.raises(NotImplementedError):
-        create_model(cfg.replace(model_name="vit_tiny_patch16_224"))
-    with pytest.raises(NotImplementedError):
-        create_model(cfg.replace(model_name="convnext_atto", drop_path_rate=0.1))
+    # ViT and ConvNeXt's drop-path are ported: a deep-supervised ViT builds
+    # with JAX's parameters (keys and shapes through the carrier), and
+    # ConvNeXt's drop sites carry JAX's positive per-block rates, then the
+    # head's dropout
+    vit = "vit_tiny_patch16_224"
+    shapes = jax.eval_shape(jax_create_model(jcfg.replace(model_name=vit)).init,
+                            jax.random.key(0))["params"]
+    ref = state_dict_from_jax(jax.tree.map(lambda a: np.zeros(a.shape, np.float32), shapes))
+    with torch.device("meta"):
+        ours = create_model(cfg.replace(model_name=vit)).module.state_dict()
+        atto = create_model(cfg.replace(model_name="convnext_atto", drop_path_rate=0.1,
+                                        drop_rate=0.2)).module
+    assert {k: v.shape for k, v in ours.items()} == {k: v.shape for k, v in ref.items()}
+    rates = [r for stage in jax_drop_path_rates(0.1, (2, 2, 6, 2)) for r in stage if r > 0]
+    assert [s.rate for s in drop_sites(atto)] == rates + [0.2]
     assert build_optimizer(cfg.replace(schedule="none"), 2e-3).schedule(7) == 2e-3
 
 
