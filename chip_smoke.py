@@ -130,7 +130,12 @@ from image_classification_tpu_torch.data.stats import NORM_STATS_FILE, compute_c
 from image_classification_tpu_torch.aug.draws import draws_to
 from image_classification_tpu_torch.aug.geometry import draw_geometry, source_coords
 from image_classification_tpu_torch.aug.pipeline import aug_configs_from, train_augment
-from image_classification_tpu_torch.aug.randaug import NUM_OPS
+from image_classification_tpu_torch.aug.randaug import (
+    NUM_OPS,
+    affine_coords,
+    draw_rand_augment,
+    slot_matrix,
+)
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
@@ -161,6 +166,7 @@ from image_classification_tpu_torch.ops import (
     warp,
     warp_reference,
 )
+from image_classification_tpu_torch.ops.warp import STAGE_MAX_BYTES, warp_staged
 from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import build_criterion
@@ -312,8 +318,21 @@ GEMM_REL_TOL = 1e-4
 # runs of the same script on the checkout that still had it); the block
 # tail's WMMA backward and WMMA forward (two runs of tools/time_block_mlp.py
 # on those checkouts; "block_mlp" at the predict shapes is the inference
-# forward, at the train shapes the training forward).
+# forward, at the train shapes the training forward); the Triton GELU
+# forward and the one-pixel-a-thread warp before their redesign (the mean of
+# two runs of tools/time_gelu_warp.py on a checkout of that design, in turns
+# with this one; the warp's coordinates drawn as check_warp draws them).
 EARLIER_MS = {
+    ("gelu", (20736, 4096)): 0.1223, ("gelu", (1296, 4096)): 0.0084,
+    ("gelu", (384, 4096)): 0.0041, ("gelu", (4624, 3072)): 0.0236,
+    ("gelu", (1296, 6144)): 0.0121, ("gelu", (3136, 4096)): 0.0215,
+    ("gelu", (12608, 3072)): 0.0579,
+    ("warp", ((32, 60, 80, 3), (32, 260, 260, 2), "geometric")): 0.0180,
+    ("warp", ((64, 60, 80, 3), (64, 60, 80, 2), "geometric")): 0.0054,
+    ("warp", ((64, 60, 80, 3), (64, 60, 80, 2), "RandAugment")): 0.0051,
+    ("warp", ((64, 60, 80, 3), (64, 224, 224, 2), "geometric")): 0.0306,
+    ("warp", ((64, 224, 224, 3), (64, 224, 224, 2), "RandAugment")): 0.0333,
+    ("warp", ((128, 60, 80, 3), (128, 224, 224, 2), "geometric")): 0.0586,
     ("dwconv", (256, 65, 65, 128)): 1.3439, ("dwconv", (256, 33, 33, 256)): 0.7947,
     ("dwconv", (256, 17, 17, 512)): 0.5380, ("dwconv", (256, 9, 9, 1024)): 0.4266,
     ("dwconv", (16, 65, 65, 192)): 0.1321, ("dwconv", (16, 33, 33, 384)): 0.0755,
@@ -573,7 +592,7 @@ KERNEL_META = {
                "image_classification_tpu/ops/dwconv.py:205"),
     "block_mlp": ("cuda", "image_classification_tpu_torch/csrc/block_mlp.cu",
                   "image_classification_tpu/ops/block_mlp.py:253"),
-    "gelu": ("triton", "image_classification_tpu_torch/ops/gelu.py",
+    "gelu": ("cuda", "image_classification_tpu_torch/csrc/gelu.cu",
              "image_classification_tpu/ops/gelu.py:74"),
     # the split route: the forward stencil on g (dx) and the wgrad kernel (dw)
     "dwconv_bwd": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7_fwd_wgrad.cu",
@@ -787,6 +806,7 @@ def check_kernels() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     check_gemm_core(gen)
     check_f32_paths(gen)
+    check_gelu_fwd_edges(gen)
     check_edge_shapes(gen)
     check_block_bwd_edges(gen)
     check_block_fwd_edges(gen)
@@ -797,6 +817,7 @@ def check_kernels() -> list[dict]:
     for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, ENTRY_DIMS, ENTRY_DEPTHS)):
         print(f"{ENTRY_MODEL} stage {stage}:", flush=True)
         check_stage(table, gen, stage, hw, c, MICRO, depth * ACCUM)
+    check_warp_edges(gen)
     check_warp(table, gen)
     return table.entries(KERNEL_META)
 
@@ -917,17 +938,54 @@ def check_stage(table: KernelTable, gen, stage: int, hw, c: int,
 def check_gelu_fwd(table: KernelTable, gen, rows: int, cols: int, per: int) -> None:
     """The GELU forward kernel on (rows, cols) bf16 against its plain
     version (ULP_TOL), timed beside ``F.gelu``, added to ``table`` as
-    ``per`` launches."""
+    ``per`` launches; then in f32 on the same values (1e-5), and, in both
+    types, on the flat tensor without its last 3 elements (a scalar tail)
+    and from its second element on (a base one element past a 16-byte
+    boundary: a scalar head, and the tail)."""
     x = randn(gen, rows, cols, scale=3.0)
     y, ref = gelu(x), gelu_reference(x)
     ulps = bf16_ulp_distance(y, ref)
     require(ulps <= ULP_TOL, f"gelu {tuple(x.shape)}: {ulps} ulps")
+    flat = x.reshape(-1)
+    for part in (flat[:-3], flat[1:]):
+        u = bf16_ulp_distance(gelu(part), gelu_reference(part))
+        require(u <= ULP_TOL, f"gelu bf16 n={part.numel()} at +{part.data_ptr() % 16} "
+                f"bytes: {u} ulps")
+        ulps = max(ulps, u)
+    xf = x.float()
+    err = 0.0
+    for part in (xf, xf.reshape(-1)[:-3], xf.reshape(-1)[1:]):
+        err = max(err, (gelu(part) - gelu_reference(part)).abs().max().item())
+    require(err <= 1e-5, f"gelu f32 {tuple(x.shape)} (whole, tail, head): err {err}")
+    print(f"gelu {tuple(x.shape)}: bf16 {ulps} ulps, f32 max abs err {err:.3g} "
+          f"(whole, without the last 3, from the second element)", flush=True)
+    del xf
     ms, lib_ms = kernel_and_library_ms(f"gelu {tuple(x.shape)}", lambda: gelu(x),
                                        lambda: torch.nn.functional.gelu(x))
     table.add("gelu", tuple(x.shape), per,
               (y.float() - ref.float()).abs().max().item(), ms,
               time_ms(lambda: gelu_reference(x), 5), lib_ms,
               4 * x.numel(), 20 * x.numel(), FP32_FLOPS)
+
+
+def check_gelu_fwd_edges(gen) -> None:
+    """The GELU forward at small n (1, 7, 8, 9, 4097) from 0 to 3 elements
+    past a 16-byte boundary, in bf16 (ULP_TOL) and f32 (1e-5): heads,
+    tails, and a launch with no 16-byte vector at all."""
+    for dtype in (torch.bfloat16, torch.float32):
+        base = randn(gen, 4100, scale=3.0, dtype=dtype)
+        for n in (1, 7, 8, 9, 4097):
+            for off in range(4):
+                x = base[off:off + n]
+                y, ref = gelu(x), gelu_reference(x)
+                if dtype == torch.bfloat16:
+                    err = bf16_ulp_distance(y, ref)
+                    require(err <= ULP_TOL, f"gelu bf16 n={n} +{off}: {err} ulps")
+                else:
+                    err = (y - ref).abs().max().item()
+                    require(err <= 1e-5, f"gelu f32 n={n} +{off}: err {err}")
+    print("gelu forward at n = 1, 7, 8, 9, 4097 from 0-3 elements past a 16-byte "
+          "boundary agrees with its plain version in bf16 and f32", flush=True)
 
 
 def check_gelu_bwd(table: KernelTable, gen, rows: int, cols: int, per: int) -> None:
@@ -961,22 +1019,99 @@ def grid_sample_reflect(img: torch.Tensor, coords: torch.Tensor, dtype):
         align_corners=True).permute(0, 2, 3, 1)
 
 
+# Each warp launch shape checked in this run, and the kernel's path there
+# (ops/warp.py:warp_staged), for the ``kernels`` line.
+WARP_PATHS: dict[str, str] = {}
+
+
+def randaug_coords(gen, batch: int, hw, ra) -> torch.Tensor:
+    """(batch, H, W, 2) source coordinates of one RandAugment slot on an
+    (H, W) image, its op, magnitude and sign drawn as the aug draws them:
+    ops 3 and 11-14 move the grid, the rest sample it where it lies."""
+    d = draw_rand_augment(gen, batch, ra)
+    frac = d.mags[:, 0] / 10.0
+    return affine_coords(slot_matrix(d.op_ids[:, 0], torch.where(d.signs[:, 0], frac, -frac),
+                                     hw), hw)
+
+
 def check_warp(table: KernelTable, gen, config: str = "v4.json", batch: int = N_AUG,
-               per: int = 1, over: list[str] = ()) -> None:
-    """The warp at a train step's shape in bf16 (``config``'s output size
-    with ``over`` applied, ``batch`` images; ``per`` launches a step), its
-    coordinates from the
+               over: list[str] = ()) -> None:
+    """The warp at each of a train step's launch shapes in bf16 (``config``
+    with ``over`` applied, ``batch`` images): the geometric warp of 60x80
+    images to the output size, one launch a step, its coordinates from the
     port's geometry with every probability 1 (flips, rotations and
-    distortions fold through the border), and at a small odd shape in f32
-    with coordinates far outside the image."""
+    distortions fold through the border); where the config runs
+    RandAugment, its affine slots on an image of the output size,
+    ``randaugment_num_ops`` launches a step. Each against its plain version
+    (ULP_TOL; the largest distance is printed, and the kernel's bits are the
+    plain version's), timed beside ``grid_sample``, added to ``table``."""
     cfg = load_config(os.path.join(REPO, "configs", config), list(over)).replace(**ALL_ONES)
-    g = aug_configs_from(cfg)["geometry"]
+    aug = aug_configs_from(cfg)
+    g = aug["geometry"]
     out_hw = tuple(cfg.image_size)
     coords = source_coords(draw_geometry(gen, batch, out_hw, g), NATIVE, out_hw, g)
     img = torch.from_numpy(synthetic_images(batch, seed=41)).cuda().to(torch.bfloat16)
-    y, ref = warp(img, coords), warp_reference(img, coords)
-    ulps = bf16_ulp_distance(y, ref)
-    require(ulps <= ULP_TOL, f"warp bf16: {ulps} ulps")
+    launches = [("geometric", img, coords, 1)]
+    if aug["randaugment"] is not None:
+        ra = aug["randaugment"]
+        src = (torch.rand(batch, *out_hw, 3, generator=gen, device="cuda")
+               * 255).to(torch.bfloat16)
+        launches.append(("RandAugment", src, randaug_coords(gen, batch, out_hw, ra),
+                         ra.num_ops))
+    for kind, img, coords, per in launches:
+        y, ref = warp(img, coords), warp_reference(img, coords)
+        ulps = bf16_ulp_distance(y, ref)
+        path = ("staged" if warp_staged(*img.shape[1:], img.dtype, y.numel() // y.shape[-1])
+                else "gather")
+        what = f"{tuple(img.shape)} -> {tuple(coords.shape[:3])} {kind}"
+        WARP_PATHS[what] = path
+        print(f"warp {what} x{per}, {path} path: {ulps} ulps from its plain version",
+              flush=True)
+        require(ulps <= ULP_TOL, f"warp bf16 {what}: {ulps} ulps")
+        ms, lib_ms = kernel_and_library_ms(
+            f"warp {what}", lambda: warp(img, coords),
+            grid_sample_reflect(img, coords, torch.bfloat16))
+        c = img.shape[-1]
+        table.add("warp", (tuple(img.shape), tuple(coords.shape), kind), per,
+                  (y.float() - ref.float()).abs().max().item(), ms,
+                  time_ms(lambda: warp_reference(img, coords), 5), lib_ms,
+                  img.numel() * 2 + coords.numel() * 4 + y.numel() * 2,
+                  coords.numel() // 2 * (WARP_FLOPS_PER_PIXEL + WARP_FLOPS_PER_CHANNEL * c),
+                  FP32_FLOPS)
+
+
+def far_coords(gen, b: int, out_hw, src_hw) -> torch.Tensor:
+    """(b, Ho, Wo, 2) coordinates from half an image before each edge to
+    half an image past it: most fold through a border, some twice."""
+    (ho, wo), (h, w) = out_hw, src_hw
+    return torch.stack([torch.rand(b, ho, wo, generator=gen, device="cuda") * 2 * h - h / 2,
+                        torch.rand(b, ho, wo, generator=gen, device="cuda") * 2 * w - w / 2],
+                       -1)
+
+
+def warp_on_path(img: torch.Tensor, coords: torch.Tensor, staged: bool) -> torch.Tensor:
+    """``ic_warp`` on the path given, not the one ``warp_staged`` picks."""
+    B, H, W, C = img.shape
+    out = torch.empty(*coords.shape[:3], C, dtype=img.dtype, device="cuda")
+    code = _build.library().ic_warp(
+        img.data_ptr(), coords.data_ptr(), out.data_ptr(), B, H, W, C,
+        coords.shape[1] * coords.shape[2], _build.DTYPE_CODES[img.dtype], int(staged),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "warp")
+    return out
+
+
+def check_warp_edges(gen) -> None:
+    """The warp where it can break beyond the launch shapes, on both paths
+    (staged and gather, whichever ``warp_staged`` would pick), each against
+    its plain version (bf16: ULP_TOL; f32: 1e-4) on coordinates far outside
+    the image: 3 images of 13x17x3 -> 11x19 in f32 through the wrapper (P =
+    209 is odd, so images 1 and 2 start with a head of single pixels); 5
+    images of 13x17x3 -> 9x23 (P = 207: heads of 0, 1, 2 and 3 pixels,
+    ragged last groups) in bf16 and f32; and sources at the staged path's
+    size limit, STAGE_MAX_BYTES (112x128 in bf16, 56x128 in f32), 3 images
+    -> 45x47 (odd P), and a column past it through the wrapper (which
+    gathers: ``warp_staged`` must put the limit there)."""
     small = 128 + randn(gen, 3, 13, 17, 3, scale=60.0, dtype=torch.float32)
     sc = torch.stack([torch.rand(3, 11, 19, generator=gen, device="cuda") * 60 - 20,
                       torch.rand(3, 11, 19, generator=gen, device="cuda") * 80 - 30], -1)
@@ -986,19 +1121,31 @@ def check_warp(table: KernelTable, gen, config: str = "v4.json", batch: int = N_
     print(f"warp f32 3x13x17x3 -> 11x19: max |kernel - plain| {err:.3g}, "
           f"max |grid_sample - plain| {lib_err:.3g}", flush=True)
     require(err <= 1e-4, f"warp f32 err {err}")
-    ms, lib_ms = kernel_and_library_ms(
-        f"warp {tuple(img.shape)} -> {tuple(coords.shape[:3])}",
-        lambda: warp(img, coords), grid_sample_reflect(img, coords, torch.bfloat16))
-    c = img.shape[-1]
-    table.add("warp", (tuple(img.shape), tuple(coords.shape)), per,
-              (y.float() - ref.float()).abs().max().item(), ms,
-              time_ms(lambda: warp_reference(img, coords), 5), lib_ms,
-              img.numel() * 2 + coords.numel() * 4 + y.numel() * 2,
-              coords.numel() // 2 * (WARP_FLOPS_PER_PIXEL + WARP_FLOPS_PER_CHANNEL * c),
-              FP32_FLOPS)
+    for dtype in (torch.bfloat16, torch.float32):
+        h = STAGE_MAX_BYTES // (4 * dtype.itemsize) // 128
+        require(warp_staged(h, 128, 3, dtype, 2 ** 40)
+                and not warp_staged(h, 129, 3, dtype, 2 ** 40),
+                f"warp_staged's size limit is not at {h}x128 in {dtype}")
+        for (b, sh, sw), out_hw, paths in (((5, 13, 17), (9, 23), (True, False)),
+                                           ((3, h, 128), (45, 47), (True, False)),
+                                           ((3, h, 129), (45, 47), (None,))):
+            img = (128 + randn(gen, b, sh, sw, 3, scale=60.0, dtype=torch.float32)).to(dtype)
+            coords = far_coords(gen, b, out_hw, (sh, sw))
+            ref = warp_reference(img, coords)
+            for staged in paths:   # None: the wrapper's (gather: past the limit)
+                y = warp(img, coords) if staged is None else warp_on_path(img, coords, staged)
+                path = {None: "the wrapper's gather", True: "staged", False: "gather"}[staged]
+                if dtype == torch.bfloat16:
+                    err = bf16_ulp_distance(y, ref)
+                    require(err <= ULP_TOL, f"warp bf16 {tuple(img.shape)}: {err} ulps")
+                else:
+                    err = (y - ref).abs().max().item()
+                    require(err <= 1e-4, f"warp f32 {tuple(img.shape)}: err {err}")
+                print(f"warp {str(dtype)[6:]} {tuple(img.shape)} -> {out_hw}, {path} path: "
+                      f"{'ulps' if dtype == torch.bfloat16 else 'max abs err'} {err:.3g}",
+                      flush=True)
 
 
-# ---------------------------------------------------------------- train
 def synthetic_images(n: int, seed: int) -> np.ndarray:
     """uint8 60x80 images from a numpy seed: a random colour per image plus
     noise."""
@@ -1654,16 +1801,17 @@ def check_v2_kernels(stage_hw=V2_STAGE_HW, over: list[str] = (), tag: str = "V2"
                      seed: int = 4321) -> None:
     """Every kernel of ConvNeXt-B on the V2 path at its shapes (batch 64 on
     maps of ``stage_hw``, forward and backward; stage 3 on the composed
-    route), and the warp at the aug's 60x80 -> ``over``'s image size, 1 + 3
-    launches a step; printed under ``tag``, with the sums of one optimizer
-    step."""
+    route), and the warp at its launch shapes (``check_warp``: the
+    geometric warp from 60x80 to ``over``'s image size once a step, then
+    RandAugment's 3 slots on an image of that size); printed under ``tag``,
+    with the sums of one optimizer step."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     table = KernelTable()
     depths, dims = CONVNEXT_CONFIGS[V2_MODEL]
     for stage, (hw, c, depth) in enumerate(zip(stage_hw, dims, depths)):
         print(f"{tag} {V2_MODEL} stage {stage} ({hw[0]}x{hw[1]}):", flush=True)
         check_stage(table, gen, stage, hw, c, V2_BATCH, depth, bwd_batch=V2_BATCH)
-    check_warp(table, gen, "v2_convbase.json", V2_BATCH, per=4, over=over)
+    check_warp(table, gen, "v2_convbase.json", V2_BATCH, over=over)
     for e in table.entries(KERNEL_META):
         print(f"{tag} per optimizer step: {e['name']} kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms, library "
@@ -2525,6 +2673,9 @@ def main() -> int:
           f"core {v2e['attention']['share']:.1%} of its device time; against the f32 "
           f"host step {v2e['vit_check']}; {V2_MODEL} with drop-path and dropout "
           f"against the f32 host step {v2e['convnext_check']}; on {smi}", flush=True)
+    for e in kernels:
+        if e["name"] == "warp":
+            e["paths"] = dict(WARP_PATHS)   # every launch shape checked in this run
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -178,17 +178,22 @@ def slot_matrix(op: torch.Tensor, signed: torch.Tensor, hw) -> torch.Tensor:
     return torch.stack([torch.stack(list(r), -1) for r in rows], -2)
 
 
-def affine_warp(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """Each sample of ``img`` (B, H, W, C) resampled at ``mat`` (B, 2, 3)
-    applied to its own pixel grid, reflect-101 bilinear. The coordinates
-    are f32 products and sums written out elementwise (no TF32 matmul)."""
-    H, W = img.shape[1:3]
-    grid = output_grid(H, W, img.device)
+def affine_coords(mat: torch.Tensor, hw) -> torch.Tensor:
+    """(B, H, W, 2) [y, x] source coordinates of each pixel of an (H, W)
+    grid under ``mat`` (B, 2, 3): f32 products and sums written out
+    elementwise (no TF32 matmul)."""
+    grid = output_grid(*hw, mat.device)
     x, y = grid[None, ..., 0], grid[None, ..., 1]
     m = mat[..., None, None]
     src_x = m[:, 0, 0] * x + m[:, 0, 1] * y + m[:, 0, 2]
     src_y = m[:, 1, 0] * x + m[:, 1, 1] * y + m[:, 1, 2]
-    return sample_image(img.contiguous(), torch.stack([src_y, src_x], dim=-1))
+    return torch.stack([src_y, src_x], dim=-1)
+
+
+def affine_warp(img: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Each sample of ``img`` (B, H, W, C) resampled at ``mat`` (B, 2, 3)
+    applied to its own pixel grid, reflect-101 bilinear."""
+    return sample_image(img.contiguous(), affine_coords(mat, img.shape[1:3]))
 
 
 # --------------------------------------------------------------------------

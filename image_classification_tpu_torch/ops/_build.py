@@ -56,7 +56,8 @@ _SIGNATURES = {
     "ic_block_mlp_bwd_bf16": ([_P] * 23 + [_I64, _I, _F, _P], _I),
     "ic_block_mlp_gemm_splits": ([_I64, _I, _I64], _I),
     "ic_block_mlp_gemm": ([_P] * 3 + [_I, _I, _I64, _I, _I64, _P], _I),
-    "ic_warp": ([_P] * 3 + [_I] * 6 + [_P], _I),
+    "ic_warp": ([_P] * 3 + [_I] * 7 + [_P], _I),
+    "ic_gelu_fwd": ([_P, _P, _I64, _I, _P], _I),
 }
 
 

@@ -12,18 +12,20 @@ so one exp serves both; f32 internals, stored in ``x``'s dtype.
 :class:`_GeluFunction`, which saves ``x`` and whose backward is
 :func:`gelu_bwd`. On a CPU tensor both directions run their plain PyTorch
 versions (:func:`gelu_reference`, :func:`gelu_grad_reference`). On a CUDA
-tensor they launch the Triton kernels below, or raise.
+tensor they launch their kernels, or raise:
 
-Triton kernels ``_gelu_kernel`` (forward) and ``_gelu_bwd_kernel``:
+* the forward, ``ic_gelu_fwd`` in ``csrc/gelu.cu`` (CUDA C++), replaces
+  ``image_classification_tpu/ops/gelu.py:_run_elementwise`` with
+  ``_gelu_fwd_kernel``: a grid-stride pass over 16-byte vectors, its grid
+  and cache policy chosen by whether x and y fit L2 (the note at the top
+  of the source says why);
+* the backward, the Triton kernel ``_gelu_bwd_kernel``, replaces
+  ``_run_elementwise`` with ``_gelu_bwd_kernel``: one flat masked pass,
+  1024 elements a program, f32 internals in registers.
 
-* replace ``image_classification_tpu/ops/gelu.py:_run_elementwise`` with
-  ``_gelu_fwd_kernel`` and with ``_gelu_bwd_kernel`` respectively;
-* are bound by device memory on the H100: the forward reads one tensor and
-  writes one against ~20 FLOP an element, the backward reads two (``x``,
-  ``dy``) and writes one against ~25 FLOP, at the stage-3 activation
-  (``(B*81, 4096)``);
-* do about that: one flat masked pass, 1024 elements a program, f32
-  internals in registers, so the only traffic is the reads and the write.
+Both are bound by device memory on the H100: the forward reads one tensor
+and writes one against ~20 FLOP an element, the backward reads two (``x``,
+``dy``) and writes one against ~25 FLOP.
 """
 
 from __future__ import annotations
@@ -77,30 +79,13 @@ def gelu_grad_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _triton_kernels():
+def _triton_bwd_kernel():
     from image_classification_tpu_torch.ops._build import BUILD_DIR
 
     # keep Triton's compiled kernels with the CUDA build, in the checkout
     os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
     import triton
     import triton.language as tl
-
-    # The two kernels repeat the erf expansion: a jit function defined in
-    # this closure could not be called from another one.
-    @triton.jit
-    def _gelu_kernel(x_ptr, y_ptr, n, BLOCK: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        a = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        x = a * 0.7071067811865476
-        ax = tl.abs(x)
-        t = 1.0 / (1.0 + 0.3275911 * ax)
-        poly = t * (0.254829592 + t * (-0.284496736 + t * (
-            1.421413741 + t * (-1.453152027 + t * 1.061405429))))
-        erf = 1.0 - poly * tl.exp(-ax * ax)
-        erf = tl.where(x < 0.0, -erf, tl.where(x > 0.0, erf, 0.0))
-        y = 0.5 * a * (1.0 + erf)
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
     def _gelu_bwd_kernel(x_ptr, dy_ptr, dx_ptr, n, BLOCK: tl.constexpr):
@@ -120,7 +105,7 @@ def _triton_kernels():
         tl.store(dx_ptr + offs, (grad * dy).to(dx_ptr.dtype.element_ty),
                  mask=mask)
 
-    return _gelu_kernel, _gelu_bwd_kernel
+    return _gelu_bwd_kernel
 
 
 def _check(name: str, *tensors: torch.Tensor) -> None:
@@ -138,12 +123,20 @@ def _gelu_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return gelu_reference(x)
     _check("gelu", x)
-    y = torch.empty_like(x)
+    from image_classification_tpu_torch.ops import _build
+
     n = x.numel()
+    # y starts at x's offset from a 16-byte boundary (a fresh tensor's is
+    # 0), so that the kernel's 16-byte vectors line up in both
+    off = x.data_ptr() % 16 // x.element_size()
+    y = (torch.empty(n + off, dtype=x.dtype, device=x.device)[off:].view(x.shape)
+         if off else torch.empty_like(x))
     if n:
         with torch.cuda.device(x.device):
-            _triton_kernels()[0][(-(-n // _BLOCK),)](
-                x, y, n, BLOCK=_BLOCK, num_warps=4)
+            code = _build.library().ic_gelu_fwd(
+                x.data_ptr(), y.data_ptr(), n, _build.DTYPE_CODES[x.dtype],
+                _build.stream_ptr(x))
+        _build.check(code, "gelu")
         gelu.launches += 1
     return y
 
@@ -159,7 +152,7 @@ def gelu_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     n = x.numel()
     if n:
         with torch.cuda.device(x.device):
-            _triton_kernels()[1][(-(-n // _BLOCK),)](
+            _triton_bwd_kernel()[(-(-n // _BLOCK),)](
                 x, dy, dx, n, BLOCK=_BLOCK, num_warps=4)
         gelu_bwd.launches += 1
     return dx

@@ -24,7 +24,13 @@ Pallas kernel by up to 2-3 grey levels.
 
 On a CPU tensor :func:`warp` runs :func:`warp_reference`, the same
 arithmetic in PyTorch; on a CUDA tensor it launches ``csrc/warp.cu`` (see
-the note at its top), or raises.
+the note at its top), or raises. The kernel has two paths, and
+:func:`warp_staged` alone chooses between them: where the source image,
+padded to 4 channels, fits in ``STAGE_MAX_BYTES`` of shared memory and the
+batch's output is large enough to pay for copying it there (V3.1's 60x80
+-> 224² at batch 128), a block stages it once and reads each tap from it;
+elsewhere each tap is gathered from device memory. Both give the plain
+version's bits.
 """
 
 from __future__ import annotations
@@ -32,6 +38,30 @@ from __future__ import annotations
 import torch
 
 MAX_CHANNELS = 4
+# The staged path (a block copies its source image into shared memory, each
+# pixel padded to MAX_CHANNELS elements, and reads every tap from there)
+# takes sources whose copy fits STAGE_MAX_BYTES: 112 KiB leaves room for two
+# blocks in an H100 SM's 228 KiB. Each block copies the whole image, so the
+# copy pays only where the batch's output is large against its source: at
+# least STAGE_MIN_RATIO output pixels for each source pixel. On an H100
+# (tools/time_gelu_warp.py --variants, bf16), staging won by 5% at V3.1's
+# 128 x 224² outputs from 60x80 sources (1,338 to one) and lost 3% at the V2
+# ensemble's 64 x 224² (669), 12% at V4's 32 x 260² (450) and 27% at V2's
+# 64 x 60x80 (64).
+STAGE_MAX_BYTES = 112 * 1024
+STAGE_MIN_RATIO = 1000
+
+
+def warp_staged(h: int, w: int, c: int, dtype: torch.dtype, out_pixels: int) -> bool:
+    """Whether the kernel stages an (h, w, c) source image of ``dtype`` in
+    shared memory for a batch of ``out_pixels`` output pixels in all (else
+    it gathers each tap from device memory): its 4-channel texels, ``4 *
+    itemsize`` bytes each, within STAGE_MAX_BYTES, and at least
+    STAGE_MIN_RATIO output pixels for each source pixel."""
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"warp: {c} channels (1..{MAX_CHANNELS})")
+    return (h * w * MAX_CHANNELS * dtype.itemsize <= STAGE_MAX_BYTES
+            and out_pixels >= STAGE_MIN_RATIO * h * w)
 
 
 def floor_mod(x: torch.Tensor, period: float) -> torch.Tensor:
@@ -98,14 +128,15 @@ def warp(img: torch.Tensor, coords_yx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"warp: unsupported image shape {tuple(img.shape)} "
                          f"(1 <= C <= {MAX_CHANNELS}, B <= 65535)")
     _build.require_cuda("warp", img, coords_yx)
-    if coords_yx.data_ptr() % 8:
-        raise ValueError("warp: coords must be 8-byte aligned (read as float2)")
-    out =torch.empty((B, Ho, Wo, C), dtype=img.dtype, device=img.device)
+    if coords_yx.data_ptr() % 16:
+        raise ValueError("warp: coords must be 16-byte aligned (read as float4)")
+    out = torch.empty((B, Ho, Wo, C), dtype=img.dtype, device=img.device)
     if out.numel():
         with torch.cuda.device(img.device):
             code = _build.library().ic_warp(
                 img.data_ptr(), coords_yx.data_ptr(), out.data_ptr(),
                 B, H, W, C, Ho * Wo, _build.DTYPE_CODES[img.dtype],
+                int(warp_staged(H, W, C, img.dtype, B * Ho * Wo)),
                 _build.stream_ptr(img))
         _build.check(code, "warp")
         warp.launches += 1
