@@ -87,7 +87,8 @@ filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 forward
 and backward run on one GEMM core (wgmma fed by TMA), which is also held
 alone, product by product, against ``torch.matmul``.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --only parallel    # the kernels' build and phase parallel
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and Triton; imports no JAX. It
 exits non-zero, before printing any result, when there is no card or any
@@ -438,6 +439,35 @@ EFF_F32_STATS_REL_L2 = 1e-4
 # their folds fail, in the JAX package as in the port), 2 folds x 1 epoch.
 V2E_OVERRIDES = ["image_size=[224,224]", "num_folds=2", "epochs=1"]
 V2E_MEMBERS = ("convnext_base", "vit_base_patch16_224", "deit_base_patch16_224")
+# Parallel phase: data parallelism on one card, two processes joined by
+# gloo (NCCL refuses two ranks on one device), each with half of the global
+# batch and its rows of one global set of draws, against one process with
+# the whole batch; then NCCL at world 1; then the fold-parallel entry point.
+PAR_WORLD = 2
+PAR_TIMED_STEPS = 2       # steps each rank times after the compared one
+PAR_RDZV_TIMEOUT_S = 300
+# 2 ranks against 1 on the same global batch, weights and draws, both on
+# the card in the same dtype: each rank runs its kernels on its half of
+# each microbatch (other GEMM shapes, so other bf16 roundings of the same
+# rows) and the gradients add in another order, so the loss keeps the
+# spirit of TRAIN_LOSS_REL_TOL; the parameters and EMA, one Adam step from
+# zero moments (a step of ~lr per parameter whatever its gradient, so a
+# gradient near 0 can flip sign), check_train_step's 4 lr; BatchNorm's
+# running statistics after the step (their change over it, rel. L2 over
+# every BatchNorm): in f32 the same function to f32 rounding, in bf16
+# EFF_STATS_REL_L2, the bound for bf16 rounding of a B0 step. ViT-B/16 on
+# mesh_model=2 (each MLP split over the 2 ranks) against 1 process: in bf16
+# each rank's fc2 product is rounded before the two are summed, so the
+# loss keeps TRAIN_LOSS_REL_TOL; in f32 the f32 bound.
+PAR_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
+PAR_F32_LOSS_REL_TOL = 1e-5
+PAR_F32_STATS_REL_L2 = 1e-4
+PAR_BF16_STATS_REL_L2 = EFF_STATS_REL_L2
+# cli train fold_parallel=true: each fold's epoch-1 train loss against the
+# sequential cli train of the same fold (the same process-local work, but
+# the two ranks' kernels share the card: the loss keeps the same bound).
+PAR_ENTRY_FOLDS = 2
+PAR_ENTRY_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
 V2E_WEIGHTS = (0.4, 0.3, 0.3)
 V2E_FOLDS = 2
 V2E_STAGE_HW = ((56, 56), (28, 28), (14, 14), (7, 7))   # ConvNeXt-B's maps at 224
@@ -864,6 +894,11 @@ def check_stage(table: KernelTable, gen, stage: int, hw, c: int,
         del args, y, ref
     else:
         check_gelu_fwd(table, gen, fwd_batch * mh * mw, 4 * c, per)
+        if fwd_batch != bwd_batch:   # the train step's forward: its plain version's time
+            xm = randn(gen, bwd_batch * mh * mw, 4 * c, scale=3.0)
+            print(f"gelu {tuple(xm.shape)} (the train forward): plain version "
+                  f"{time_ms(lambda: gelu_reference(xm), 5):.4f} ms", flush=True)
+            del xm
     torch.cuda.empty_cache()
 
     x = randn(gen, bwd_batch, mh, mw, c)
@@ -2572,6 +2607,303 @@ def _run_v2_ensemble(tmp: str) -> dict:
             "convnext_check": cnx_check}
 
 
+# ------------------------------------------------------------ parallel
+def _par_job(config: str, over: list[str], batch: int, seed: int,
+             spec: tuple[int, int] = (-1, 1), timed: int = PAR_TIMED_STEPS) -> dict:
+    """One global batch of uint8 60x80 images, its labels and one set of
+    global draws (made on the host), for ``config`` with ``over``, on the
+    ranks' mesh ``MeshSpec(*spec)`` (data, model), with ``timed`` steps
+    timed after the compared one."""
+    cfg = load_config(config, over)
+    images, labels = train_inputs(cfg, batch, seed=seed)
+    sites = drop_sites(seeded_model(cfg, 7).module)
+    draws = draw_train_step(torch.Generator().manual_seed(seed + 1), tuple(images.shape),
+                            cfg, sites)
+    return {"config": config, "over": list(over), "images": images, "labels": labels,
+            "draws": draws, "spec": spec, "timed": timed}
+
+
+def _par_step(job: dict, mesh=None) -> dict:
+    """One train step of ``job`` on this process' rows of its global batch
+    (all of them without a mesh; a model axis splits the MLPs), from the
+    seeded weights past warmup, then ``job['timed']`` more on fresh draws,
+    timed. Returns the compared step's loss, accuracy, kernel launches and
+    the state after it (split tensors gathered), on the host."""
+    from image_classification_tpu_torch.parallel.mesh import DATA_AXIS
+    from image_classification_tpu_torch.parallel.shardings import gather_tree, shard_model
+
+    cfg = load_config(job["config"], job["over"])
+    index, count = (0, 1) if mesh is None else (mesh.index(DATA_AXIS),
+                                                 mesh.size(DATA_AXIS))
+    bundle = train_model(cfg, "cuda")
+    shard_model(bundle.module, mesh)
+    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
+    crit = build_criterion(cfg, group=None if mesh is None else mesh.group(DATA_AXIS))
+    step = make_train_step(bundle, cfg, tx, crit, mesh=mesh)
+    state = create_train_state(bundle.module, use_ema=cfg.use_ema)
+    state.count = state.step = int(STEPS_PER_EPOCH * cfg.epochs
+                                   * cfg.gradient_accumulation_steps * cfg.warmup_ratio)
+    per = job["images"].shape[0] // count
+    batch = {k: job[k][index * per:(index + 1) * per].to("cuda")
+             for k in ("images", "labels")}
+    batch = {"image": batch["images"], "label": batch["labels"]}
+    draws = draws_to(job["draws"], "cuda")
+    stats0 = {k: v.clone() for k, v in bundle.module.named_buffers()}
+    reset_launches()
+    state, m = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    names = state.names()
+    whole = gather_tree({"params": dict(zip(names, state.params())),
+                         "ema": dict(zip(names, state.ema or []))}, bundle.module)
+    out = {"loss": float(m["loss"]), "accuracy": float(m["accuracy"]),
+           "launches": launches, "lr": tx.schedule(state.count - 1),
+           "params": [v.detach().cpu() for v in whole["params"].values()],
+           "ema": [v.cpu() for v in whole["ema"].values()],
+           "stats": [(v - stats0[k]).cpu() for k, v in bundle.module.named_buffers()],
+           "want": expected_launches(cfg, 1, 0), "step_ms": None}
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    for i in range(job["timed"]):
+        gen.manual_seed(1000 + i)
+        state, m = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    if job["timed"]:
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / job["timed"]
+    return out
+
+
+def _par_worker(rank: int, world: int, rdzv: str, out: str, backend: str, jobs: list,
+                argv: list | None) -> None:
+    """One rank on the one card: joins the group (gloo for two ranks on one
+    device, NCCL at world 1), then runs ``jobs`` through :func:`_par_step`
+    on the mesh of the data axis, or ``cli.main(argv)``; saves the results
+    to ``{out}/rank{r}.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+    from image_classification_tpu_torch.parallel.mesh import (
+        DATA_AXIS, Mesh, MeshSpec, build_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    kw = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_RDZV_TIMEOUT_S), **kw)
+    try:
+        if argv is not None:
+            cli.main(argv)
+            return
+        # at world 1 the data axis has no group of its own: hand it the world
+        # group, so that the step goes through its gradient all-reduce
+        results = [_par_step(job, build_mesh(MeshSpec(*job["spec"])) if world > 1 else
+                             Mesh((1, 1, 1), 0, {DATA_AXIS: dist.group.WORLD}))
+                   for job in jobs]
+        if backend == "nccl":
+            results.append({"nccl": ".".join(map(str, torch.cuda.nccl.version()))})
+        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_spawn(tmp: str, tag: str, world: int, backend: str, jobs: list,
+               argv: list | None = None) -> list:
+    import torch.multiprocessing as mp
+
+    out = os.path.join(tmp, tag)
+    os.makedirs(out, exist_ok=True)
+    mp.spawn(_par_worker, args=(world, os.path.join(out, "rdzv"), out, backend, jobs, argv),
+             nprocs=world, join=True)
+    if argv is not None:
+        return []
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _par_compare(name: str, ranks: list[dict], one: dict, loss_tol: float,
+                 stats_tol: float | None) -> dict:
+    """The 2-rank step against the 1-process step; the ranks' states must
+    be bit-identical."""
+    r0 = ranks[0]
+    same = all(torch.equal(a, b) for r in ranks[1:] for part in ("params", "ema")
+               for a, b in zip(r0[part], r[part]))
+    loss_rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    p_err = max(float((a - b).abs().max()) for a, b in zip(r0["params"], one["params"]))
+    e_err = max((float((a - b).abs().max()) for a, b in zip(r0["ema"], one["ema"])),
+                default=0.0)
+    stats = rel_l2(r0["stats"], one["stats"]) if r0["stats"] else None
+    lr = one["lr"]
+    res = {"loss": [r0["loss"], one["loss"]], "loss_rel": loss_rel,
+           "accuracy": [r0["accuracy"], one["accuracy"]], "max_d_param": p_err,
+           "max_d_ema": e_err, "lr": lr, "stats_rel_l2": stats,
+           "ranks_bit_identical": same,
+           "step_ms": [r["step_ms"] for r in ranks] + [one["step_ms"]]}
+    print(f"parallel {name}: {len(ranks)} ranks vs 1 process: {res}", flush=True)
+    require(same, f"{name}: the ranks' parameters differ")
+    require(loss_rel <= loss_tol, f"{name}: loss rel {loss_rel} > {loss_tol}")
+    require(p_err <= 4 * lr and e_err <= 4 * lr,
+            f"{name}: params/EMA differ by {p_err}/{e_err} > 4 lr")
+    if stats_tol is not None:
+        require(stats is not None and stats <= stats_tol,
+                f"{name}: running statistics rel L2 {stats} > {stats_tol}")
+    for r in ranks:
+        for k, n in r["want"].items():
+            require(r["launches"][k] == n, f"{name}: a rank launched {k} "
+                    f"{r['launches'][k]} times, expected {n}")
+    return res
+
+
+def run_parallel() -> dict:
+    """Phase ``parallel``: data parallelism on the one card (V4 and V1's
+    BatchNorm, 2 gloo ranks against 1 process), one V4 step through NCCL at
+    world 1, then ``cli train fold_parallel=true`` on 2 ranks, ``cli
+    predict``, and the sequential ``cli train`` of the same folds."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        return _run_parallel(tmp)
+
+
+def _run_parallel(tmp: str) -> dict:
+    t_phase = time.perf_counter()
+    v4 = os.path.join(REPO, "configs", "v4.json")
+    vit = [*V2_OVERRIDES, f"model_name={VIT_MODEL}", "image_size=[224,224]"]
+    jobs = [_par_job(v4, [], 32, seed=61),
+            _par_job(V1_CONFIG, [], 64, seed=62),
+            _par_job(V1_CONFIG, ["compute_dtype=float32"], 64, seed=62, timed=0),
+            _par_job(V2_CONFIG, vit, V2_BATCH, seed=63, spec=(1, PAR_WORLD)),
+            _par_job(V2_CONFIG, [*vit, "compute_dtype=float32"], V2_BATCH, seed=63,
+                     spec=(1, PAR_WORLD), timed=0)]
+    v4_cfg = load_config(v4)
+    require(v4_cfg.batch_size == 32 and v4_cfg.gradient_accumulation_steps == 2
+            and v4_cfg.aug_enabled and v4_cfg.mixup_alpha > 0
+            and tuple(v4_cfg.image_size) == (IMAGE, IMAGE),
+            "configs/v4.json no longer trains batch 32, accumulation 2, aug and mix at 260")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = []
+    for job in jobs:
+        one.append(_par_step(job))
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = _par_spawn(tmp, "dp", PAR_WORLD, "gloo", jobs)
+    print(f"parallel: {len(jobs)} steps in 1 process {t1 - t0:.1f} s, on {PAR_WORLD} "
+          f"ranks {time.perf_counter() - t1:.1f} s (process start included)", flush=True)
+    res = {"v4": _par_compare("V4 (ConvNeXt-B, 260, bf16, aug + mix, accum 2)",
+                              [r[0] for r in ranks], one[0], PAR_LOSS_REL_TOL, None),
+           "v1_bf16": _par_compare("V1 (EfficientNet-B0, 60x80, bf16, BatchNorm)",
+                                   [r[1] for r in ranks], one[1], PAR_LOSS_REL_TOL,
+                                   PAR_BF16_STATS_REL_L2),
+           "v1_f32": _par_compare("V1 in f32", [r[2] for r in ranks], one[2],
+                                  PAR_F32_LOSS_REL_TOL, PAR_F32_STATS_REL_L2),
+           "vit_tp": _par_compare(f"{VIT_MODEL} (224, batch {V2_BATCH}, bf16) on "
+                                  f"mesh_model={PAR_WORLD}", [r[3] for r in ranks],
+                                  one[3], PAR_LOSS_REL_TOL, None),
+           "vit_tp_f32": _par_compare(f"{VIT_MODEL} in f32 on mesh_model={PAR_WORLD}",
+                                      [r[4] for r in ranks], one[4],
+                                      PAR_F32_LOSS_REL_TOL, None)}
+    t0 = time.perf_counter()
+    nccl = _par_spawn(tmp, "nccl", 1, "nccl", jobs[:1])[0]
+    print(f"parallel: the NCCL process {time.perf_counter() - t0:.1f} s", flush=True)
+    res["nccl"] = {"version": nccl[1]["nccl"], "loss": nccl[0]["loss"],
+                   "loss_rel": abs(nccl[0]["loss"] - one[0]["loss"]) / abs(one[0]["loss"]),
+                   "params_bit_identical": all(torch.equal(a, b) for a, b in zip(
+                       nccl[0]["params"], one[0]["params"])),
+                   "step_ms": nccl[0]["step_ms"]}
+    print(f"parallel NCCL {res['nccl']['version']} at world 1, V4 step through the "
+          f"gradient all-reduce: {res['nccl']}", flush=True)
+    require(res["nccl"]["loss_rel"] <= PAR_LOSS_REL_TOL, "NCCL step loss differs")
+    for k, n in nccl[0]["want"].items():
+        require(nccl[0]["launches"][k] == n, f"NCCL step: {k} launches")
+    del one, ranks, nccl
+    res["entry"] = _par_entry(tmp)
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def _par_entry(tmp: str) -> dict:
+    """``cli train fold_parallel=true`` (V4, 2 folds x 1 epoch) on 2 gloo
+    ranks, one fold each, on the card; ``cli predict`` on its checkpoints;
+    then the sequential ``cli train`` of the same folds."""
+    v4 = os.path.join(REPO, "configs", "v4.json")
+
+    def overrides(tag: str) -> list[str]:
+        return [f"train_csv={tmp}/train.csv", f"train_dir={tmp}/train",
+                f"test_csv={tmp}/test.csv", f"test_dir={tmp}/test",
+                f"cache_dir={tmp}/cache", f"model_save_path={tmp}/{tag}/models",
+                f"output_dir={tmp}/{tag}/out", f"submission_path={tmp}/{tag}/sub.csv",
+                f"num_folds={PAR_ENTRY_FOLDS}", "epochs=1"]
+
+    cfg = load_config(v4, overrides("par"))
+    labels = entry_labels()
+    write_entry_data(cfg, labels)
+    train_sizes = [len(t) for t, _ in stratified_kfold(labels, PAR_ENTRY_FOLDS,
+                                                       cfg.fold_seed)]
+    require(len({n // cfg.batch_size for n in train_sizes}) == 1,
+            f"the folds' train sets {train_sizes} give unequal steps")
+    t0 = time.perf_counter()
+    _par_spawn(tmp, "entry", PAR_ENTRY_FOLDS, "gloo", [],
+               ["train", "--config", v4, "--device", "cuda:0", "fold_parallel=true",
+                *overrides("par")])
+    par_s = time.perf_counter() - t0
+    out = cfg.output_dir
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(out, "train.log")) as f:
+        log = f.read()
+    require(sorted((r["fold"], r["epoch"]) for r in records) == [(1, 0), (2, 0)],
+            f"metrics.jsonl: {[(r['fold'], r['epoch']) for r in records]}")
+    require(log.count("mesh (fold, data, model) (2, 1, 1)") == 1
+            and all(log.count(f"fold {k} best val acc") == 1 for k in (1, 2))
+            and "failed" not in log, "train.log:\n" + log[-3000:])
+    state_dir = os.path.join(out, "train_state_foldpar")
+    require(sorted(os.listdir(state_dir)) == ["host_state.json", "train_state_fold1.pt",
+                                               "train_state_fold2.pt"],
+            f"{state_dir}: {os.listdir(state_dir)}")
+    models = sorted(os.listdir(cfg.model_save_path))
+    require(models == sorted(f"{p}_fold{k}.{e}" for p in ("best_model", "best_loss_model")
+                             for k in (1, 2) for e in ("json", "pt"))
+            + ["norm_stats.json"] * ("norm_stats.json" in models),
+            f"{cfg.model_save_path}: {models}")
+    sub = read_submission(cfg.submission_path)
+    require(sub[0] == "id,target" and len(sub) == ENTRY_TEST + 1,
+            f"submission has {len(sub)} lines")
+    t0 = time.perf_counter()
+    cli.main(["predict", "--config", v4, "--folds", "1,2", *overrides("par"),
+              f"submission_path={tmp}/par/predict.csv"])
+    predict_s = time.perf_counter() - t0
+    require(read_submission(f"{tmp}/par/predict.csv")[1:] == sub[1:],
+            "cli predict on the fold-parallel checkpoints differs from its submission")
+    t0 = time.perf_counter()
+    cli.main(["train", "--config", v4, *overrides("seq")])
+    seq_s = time.perf_counter() - t0
+    with open(f"{tmp}/seq/out/metrics.jsonl") as f:
+        seq = {json.loads(line)["fold"]: json.loads(line) for line in f}
+    rels = {}
+    for r in records:
+        s = seq[r["fold"]]
+        rels[r["fold"]] = abs(r["train_loss"] - s["train_loss"]) / abs(s["train_loss"])
+        print(f"  fold {r['fold']}: fold-parallel train loss {r['train_loss']:.6f} "
+              f"({r['steps']} steps, {r['images_per_sec']} images/s) vs sequential "
+              f"{s['train_loss']:.6f} ({s['steps']} steps, {s['images_per_sec']} "
+              f"images/s), rel {rels[r['fold']]:.3g}; val acc {r['val_acc']:.4f} vs "
+              f"{s['val_acc']:.4f}", flush=True)
+        require(r["steps"] == s["steps"] and rels[r["fold"]] <= PAR_ENTRY_LOSS_REL_TOL,
+                f"fold {r['fold']}: fold-parallel vs sequential train loss rel "
+                f"{rels[r['fold']]}")
+    return {"fold_parallel_train_s": par_s, "predict_s": predict_s,
+            "sequential_train_s": seq_s, "train_loss_rel": rels}
+
+
+def report_parallel(par: dict, smi: str) -> None:
+    print(f"parallel phase: {par['wall_s']:.1f} s; step ms (rank 0, rank 1, 1 process): "
+          f"V4 {par['v4']['step_ms']}, V1 {par['v1_bf16']['step_ms']}, {VIT_MODEL} on "
+          f"mesh_model={PAR_WORLD} {par['vit_tp']['step_ms']}; NCCL "
+          f"{par['nccl']['version']} world-1 V4 step {par['nccl']['step_ms']:.1f} ms; "
+          f"fold-parallel cli train {par['entry']['fold_parallel_train_s']:.1f} s vs "
+          f"sequential {par['entry']['sequential_train_s']:.1f} s; on {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -2586,6 +2918,10 @@ def main() -> int:
     print(f"kernels built in {build_s:.2f} s -> {os.path.relpath(so, REPO)}",
           flush=True)
 
+    if sys.argv[1:] == ["--only", "parallel"]:
+        # the parallel phase alone, on the kernels just built (no result line)
+        report_parallel(run_parallel(), smi)
+        return 0
     kernels = check_kernels()
     v4 = load_config(os.path.join(REPO, "configs", "v4.json"))
     check_aug(v4)
@@ -2673,6 +3009,8 @@ def main() -> int:
           f"core {v2e['attention']['share']:.1%} of its device time; against the f32 "
           f"host step {v2e['vit_check']}; {V2_MODEL} with drop-path and dropout "
           f"against the f32 host step {v2e['convnext_check']}; on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    report_parallel(run_parallel(), smi)
     for e in kernels:
         if e["name"] == "warp":
             e["paths"] = dict(WARP_PATHS)   # every launch shape checked in this run

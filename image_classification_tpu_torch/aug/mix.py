@@ -8,6 +8,11 @@ the partner's centred box of relative size sqrt(1 - lambda), clipped to the
 image, and re-derives lambda from the exact pasted area. Mixing after
 Normalize equals mixing before it (both ops commute with an affine map).
 
+Under data parallelism the partner permutation is one of the global batch
+(``jax.random.permutation(k_perm, B)`` over the sharded batch): each rank
+holds its rows' draws, whose partners index the global batch, and gathers
+the images and one-hot labels of every rank to take them.
+
 Beta: ``torch.distributions.Beta`` and ``torch._standard_gamma`` take no
 generator, so :func:`sample_beta` draws on the caller's ``torch.Generator``
 with Marsaglia and Tsang's gamma sampler, written without a data-dependent
@@ -27,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from image_classification_tpu_torch.aug.draws import bernoulli, randint, uniform
+from image_classification_tpu_torch.parallel.distributed import all_gather_rows
 
 _GAMMA_CANDIDATES = 16
 
@@ -98,12 +104,15 @@ def draw_mix(gen, shape, cfg: MixCfg) -> MixDraws:
 
 
 def mixup_cutmix_batch(images: torch.Tensor, labels: torch.Tensor, d: MixDraws,
-                       cfg: MixCfg) -> tuple[torch.Tensor, torch.Tensor]:
+                       cfg: MixCfg, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """images (B, H, W, C) float, labels (B,) int -> (mixed images, f32 soft
-    labels (B, num_classes))."""
+    labels (B, num_classes)). With a data-parallel ``group`` these are this
+    rank's rows and ``d`` their draws; ``d.partner`` indexes the global
+    batch, the rows of every rank of ``group`` in rank order."""
     B, H, W, _ = images.shape
     onehot = one_hot_labels(labels, cfg.num_classes)
-    images2, onehot2 = images[d.partner], onehot[d.partner]
+    images2 = all_gather_rows(images, group)[d.partner]
+    onehot2 = all_gather_rows(onehot, group)[d.partner]
     use_mixup = d.use_mixup & (cfg.mixup_alpha > 0)
 
     lam_m = d.lam_mixup[:, None]

@@ -29,6 +29,18 @@ As in the JAX package it loads ``model_name`` from ``model_save_path``, so
 an ensemble member is scored alone with ``model_name=<name>
 model_save_path=<models>/<name> ensemble_models=[]``.
 
+``train`` runs on N GPUs under torchrun, one process each
+(``parallel/distributed.py``):
+
+    torchrun --nproc_per_node=N -m image_classification_tpu_torch.cli train ...
+
+The ranks form the mesh ``(fold, data, model)`` of ``mesh_data``,
+``mesh_model`` and, with ``fold_parallel=true``, ``num_folds`` folds side
+by side (``train/foldpar.py``); each rank trains on ``cuda:LOCAL_RANK``
+(or the CPU with ``--device cpu``, over gloo), the primary ranks write the
+files, and rank 0 predicts the submission. A caller that has initialised
+the process group itself (gloo, for two ranks on one card) keeps it.
+
 With ``norm_stats=dataset`` both normalize with the train set's channel
 stats (``data/stats.py``): ``train`` resolves them once and saves
 ``{model_save_path}/norm_stats.json``, and its submission uses them too;
@@ -72,22 +84,35 @@ def _test_loader(cfg, device):
 
 def cmd_train(args) -> None:
     from image_classification_tpu_torch.infer import predict_ensemble, write_submission
+    from image_classification_tpu_torch.parallel import distributed
+    from image_classification_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from image_classification_tpu_torch.parallel.shardings import unshard_model
     from image_classification_tpu_torch.train.kfold import train_ensemble, train_k_fold
     from image_classification_tpu_torch.utils.logging import setup_logging
 
     cfg = load_config(args.config, args.overrides)
+    device = distributed.local_device(args.device)
+    distributed.initialize(device)
+    primary = distributed.is_primary()
     # each run logs to its own output_dir, also when one process trains twice
-    logger = setup_logging(os.path.join(cfg.output_dir, "train.log"), force=True)
+    logger = setup_logging(os.path.join(cfg.output_dir, "train.log") if primary else None,
+                           force=True)
     os.makedirs(cfg.model_save_path, exist_ok=True)
     os.makedirs(cfg.output_dir, exist_ok=True)
-    device = torch.device(args.device)
-    logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
-                if device.type == "cuda" else "")
+    mesh = build_mesh(MeshSpec(cfg.mesh_data, cfg.mesh_model,
+                               fold=cfg.num_folds if cfg.fold_parallel else 1))
+    logger.info("device: %s%s, mesh (fold, data, model) %s", device,
+                f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda"
+                else "", mesh.shape)
     if cfg.ensemble_models:
-        results, ens_weights = train_ensemble(cfg, resume=args.resume, device=device)
+        results, ens_weights = train_ensemble(cfg, resume=args.resume, device=device,
+                                              mesh=mesh)
     else:
-        results = train_k_fold(cfg, resume=args.resume, device=device)
+        results = train_k_fold(cfg, resume=args.resume, device=device, mesh=mesh)
         ens_weights = None
+    distributed.barrier()
+    if not primary:
+        return
     if not results:
         logger.error("training produced no models")
         sys.exit(1)
@@ -105,8 +130,10 @@ def cmd_train(args) -> None:
     # result's module (its member's architecture) takes its own weights
     models = []
     for r in results:
-        r.bundle.module.load_state_dict(r.best_variables, strict=True)
-        models.append(r.bundle.module)
+        # a module split over the model axis takes its whole shapes back
+        module = unshard_model(r.bundle.module)
+        module.load_state_dict(r.best_variables, strict=True)
+        models.append(module)
     ids, preds, _ = predict_ensemble(models, _test_loader(cfg, device), cfg,
                                      weights=ens_weights)
     write_submission(ids, preds, cfg.submission_path, column="target")

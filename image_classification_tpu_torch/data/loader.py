@@ -1,5 +1,4 @@
-"""Batched loader, port of the single-process path of
-``image_classification_tpu/data/loader.py``.
+"""Batched loader, port of ``image_classification_tpu/data/loader.py``.
 
 Each batch is a fancy-index into the uint8 source, over ``indices`` (rows of
 the manifest; all of them by default) in the order the sampler gives for the
@@ -13,6 +12,13 @@ exception there is raised in the consumer. The consumer's thread copies
 each batch to the device (``non_blocking`` on its current stream), so no
 batch waits for the card. The JAX package's HBM image cache (a workaround
 for a remote TPU's slow host link) is not ported.
+
+With ``process_count > 1`` (one rank of the data axis each, ``train/
+kfold.py:make_fold_loaders``) every rank runs the same seeded sampler, so
+the global epoch order is the same everywhere, and rank ``k`` takes rows
+``[k*per, (k+1)*per)`` of each global batch of ``batch_size``; a ragged last
+batch is padded to the global batch with ``mask=False`` rows (index -1), so
+every rank's slice has the same shape.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ class DataLoader:
                  batch_size: int = 32, sampler: Any = None,
                  pad_last: bool = True, device: str | torch.device = "cuda",
                  indices: np.ndarray | None = None, drop_last: bool = False,
-                 prefetch_depth: int = 2):
+                 prefetch_depth: int = 2, process_index: int = 0,
+                 process_count: int = 1):
         self.source = source
         self.manifest = manifest
         self.indices = (np.asarray(indices) if indices is not None
@@ -48,6 +55,8 @@ class DataLoader:
         self.pad_last = pad_last and not drop_last
         self.device = torch.device(device)
         self.prefetch_depth = prefetch_depth
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -66,6 +75,9 @@ class DataLoader:
 
     def _host_batches(self) -> Iterator[dict[str, Any]]:
         """Each batch as host tensors, pinned for a CUDA device."""
+        if self.process_count > 1:
+            yield from self._host_batches_multiprocess()
+            return
         for idx in self._selections():
             images = self.source.get_batch(idx)
             labels = self.manifest.labels[idx]
@@ -79,6 +91,34 @@ class DataLoader:
                 idx = np.concatenate([idx, np.full(pad, -1)])
             yield {"image": self._host(images), "label": self._host(labels),
                    "mask": self._host(mask), "index": idx.astype(np.int64)}
+
+    def _host_batches_multiprocess(self) -> Iterator[dict[str, Any]]:
+        """This rank's slice of each global batch (JAX's
+        ``_batches_multihost``)."""
+        k, h = self.process_index, self.process_count
+        if self.batch_size % h != 0:
+            raise ValueError(f"global batch {self.batch_size} not divisible by "
+                             f"process count {h}")
+        if not self.drop_last and not self.pad_last:
+            raise ValueError("multi-process loading requires pad_last or drop_last")
+        per = self.batch_size // h
+        order = self.sampler.epoch_indices(self.epoch)
+        n = len(order)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, stop, self.batch_size):
+            sel = order[start : start + self.batch_size]
+            rows = np.full(self.batch_size, -1, dtype=np.int64)
+            rows[: len(sel)] = sel
+            local = rows[k * per : (k + 1) * per]
+            valid = local >= 0
+            idx = np.where(valid, self.indices[np.maximum(local, 0)], -1)
+            decoded = self.source.get_batch(idx[valid])
+            images = np.zeros((per,) + decoded.shape[1:], decoded.dtype)
+            images[valid] = decoded
+            labels = np.zeros(per, self.manifest.labels.dtype)
+            labels[valid] = self.manifest.labels[idx[valid]]
+            yield {"image": self._host(images), "label": self._host(labels),
+                   "mask": self._host(valid), "index": idx.astype(np.int64)}
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
         it = self._host_batches()

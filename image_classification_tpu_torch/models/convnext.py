@@ -37,8 +37,10 @@ from image_classification_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
     PatchConv,
-    drop_path_rates,
+    copy_to_model,
     dense,
+    dense_row_parallel,
+    drop_path_rates,
     global_avg_pool,
     init_flax_,
 )
@@ -78,6 +80,8 @@ class DepthwiseConv(nn.Module):
 
 
 class Mlp(nn.Module):
+    group = None   # the model group when fc1/fc2 are split (parallel/shardings.py)
+
     def __init__(self, dim: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, 4 * dim)
@@ -97,9 +101,11 @@ class ConvNeXtBlock(nn.Module):
 
     @property
     def fused(self) -> bool:
-        """Whether the tail runs the fused kernel (JAX's routing)."""
+        """Whether the tail runs the fused kernel (JAX's routing; a split MLP
+        takes the composed route, as JAX demotes the kernel on a model
+        axis)."""
         return (block_mlp_available(self.gamma.shape[0]) and self.drop_path.rate == 0.0
-                and not self.gelu_approximate)
+                and not self.gelu_approximate and self.mlp.group is None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
@@ -113,9 +119,10 @@ class ConvNeXtBlock(nn.Module):
                 self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma, 1e-6,
             )
             return out.view(shape)
-        h = dense(self.norm(y.reshape(-1, c)), self.mlp.fc1)
+        group = self.mlp.group
+        h = dense(copy_to_model(self.norm(y.reshape(-1, c)), group), self.mlp.fc1)
         h = F.gelu(h, approximate="tanh") if self.gelu_approximate else gelu(h)
-        h = dense(h, self.mlp.fc2) * self.gamma.to(h.dtype)
+        h = dense_row_parallel(h, self.mlp.fc2, group) * self.gamma.to(h.dtype)
         return shortcut + self.drop_path(h.view(shape))
 
 

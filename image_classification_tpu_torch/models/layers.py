@@ -19,6 +19,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -105,6 +106,53 @@ def dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
     return torch.matmul(x, fc.weight.to(x.dtype).t()) + fc.bias.to(x.dtype)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient summed over the
+    model group (every rank's shard of the MLP used the whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the ranks' partial products summed forward, the
+    gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel layer (``parallel/shardings.py``);
+    ``x`` itself without a model group."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def dense_row_parallel(x: torch.Tensor, fc: nn.Linear, group) -> torch.Tensor:
+    """:func:`dense` of a row-parallel layer: this rank's product with its
+    columns of the weight, summed over the model group in x's dtype, then
+    the (whole) bias, added once; :func:`dense` without a group."""
+    if group is None:
+        return dense(x, fc)
+    y = _ReduceFromModel.apply(torch.matmul(x, fc.weight.to(x.dtype).t()), group)
+    return y + fc.bias.to(x.dtype)
+
+
 def init_flax_(model: nn.Module, generator: torch.Generator,
                convs: tuple[type, ...] = (PatchConv,)) -> nn.Module:
     """flax's initialisation of a ConvNeXt or ViT module tree, in place:
@@ -138,18 +186,36 @@ class _BatchNormTrain(torch.autograd.Function):
     and ``_normalize``). Autograd saves x in its own dtype and the f32
     per-channel mean and rstd, not the f32 copies of x the plain ops would
     keep; the backward is the closed form of that function's gradient, with
-    JAX's weights for the clip (0 below it, 1/2 at 0)."""
+    JAX's weights for the clip (0 below it, 1/2 at 0).
+
+    With a process ``group`` (data parallelism) the statistics are those of
+    the global batch, as XLA computes them over a sharded batch: the
+    forward all-reduces Σx, Σx² and the row count, and the backward the
+    per-channel sums of dy and dy·x̂ that dx needs. The scale and bias
+    gradients it returns stay this rank's sums, which the step's gradient
+    all-reduce completes."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, group=None):
         dims = _reduce_dims(x)
         xf = x.float()
-        mean = xf.mean(dims)
-        raw = (xf * xf).mean(dims) - mean * mean
+        if group is None:
+            n = x.numel() // x.shape[-1]
+            mean = xf.mean(dims)
+            raw = (xf * xf).mean(dims) - mean * mean
+        else:
+            c = x.shape[-1]
+            sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                              xf.new_full((1,), x.numel() // c)])
+            dist.all_reduce(sums, group=group)
+            n = sums[2 * c:]
+            mean = sums[:c] / n
+            raw = sums[c:2 * c] / n - mean * mean
         var = raw.clamp_min(0.0)
         rstd = torch.rsqrt(var + eps)
         y = ((xf - mean) * (rstd * weight.float()) + bias.float()).to(x.dtype)
         ctx.save_for_backward(x, mean, rstd, raw, weight)
+        ctx.n, ctx.group = n, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -157,14 +223,20 @@ class _BatchNormTrain(torch.autograd.Function):
     def backward(ctx, gy, _gmean, _gvar):
         x, mean, rstd, raw, weight = ctx.saved_tensors
         dims = _reduce_dims(x)
-        n = x.numel() // x.shape[-1]
+        n = ctx.n
         gyf = gy.float()
         xhat = (x.float() - mean) * rstd
         dbias = gyf.sum(dims)
         dscale = (gyf * xhat).sum(dims)
+        gbias, gscale = dbias, dscale
+        if ctx.group is not None:
+            both = torch.cat([dbias, dscale])
+            dist.all_reduce(both, group=ctx.group)
+            gbias, gscale = both.chunk(2)
         clip = (raw > 0).float() + 0.5 * (raw == 0).float()
-        dx = (weight.float() * rstd) * (gyf - dbias / n - xhat * (clip * dscale / n))
-        return dx.to(x.dtype), dscale.to(weight.dtype), dbias.to(weight.dtype), None
+        dx = (weight.float() * rstd) * (gyf - gbias / n - xhat * (clip * gscale / n))
+        return (dx.to(x.dtype), dscale.to(weight.dtype), dbias.to(weight.dtype),
+                None, None)
 
 
 class BatchNorm(nn.Module):
@@ -178,7 +250,12 @@ class BatchNorm(nn.Module):
     state dict's is dropped when it loads.
 
     Train mode normalises with the batch statistics and updates the running
-    ones in place; eval mode normalises with the running ones."""
+    ones in place; eval mode normalises with the running ones. Under
+    :func:`batchnorm_group` the batch statistics are the global batch's,
+    reduced over the data-parallel group, and so every rank's running
+    statistics take the same update."""
+
+    group = None   # the data-parallel process group (batchnorm_group)
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-3):
         super().__init__()
@@ -197,12 +274,29 @@ class BatchNorm(nn.Module):
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight.float()
             return ((x.float() - self.running_mean) * mul
                     + self.bias.float()).to(x.dtype)
-        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
+                                             self.group)
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y
+
+
+@contextlib.contextmanager
+def batchnorm_group(model: nn.Module, group):
+    """Batch statistics over ``group`` (the data-parallel ranks) for every
+    :class:`BatchNorm` of ``model``, in the forwards inside the block; the
+    backward keeps the group it ran its forward with. A no-op for None."""
+    norms = ([m for m in model.modules() if isinstance(m, BatchNorm)]
+             if group is not None else [])
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 # ------------------------------------------------------------ convolutions
@@ -279,6 +373,8 @@ class _Masked(nn.Module):
     x / keep, 0)``; ``keep`` is rounded to x's dtype first, as JAX's weakly
     typed scalar is)."""
 
+    per_row = True   # the mask's first dim is the batch's rows
+
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
@@ -328,6 +424,8 @@ class AttentionDropout(_Masked):
     with ``broadcast_dropout=True``): one (1, 1, N, N) keep-mask shared by
     every sample and head, applied as ``weights * (keep / keep_prob)`` with
     the multiplier computed in the weights' dtype, not as ``where``."""
+
+    per_row = False
 
     def __init__(self, rate: float, tokens: int):
         super().__init__(rate)

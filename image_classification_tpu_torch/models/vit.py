@@ -46,7 +46,9 @@ from image_classification_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
     PatchConv,
+    copy_to_model,
     dense,
+    dense_row_parallel,
     drop_path_rates,
     init_flax_,
 )
@@ -94,15 +96,17 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
+    group = None   # the model group when fc1/fc2 are split (parallel/shardings.py)
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = dense(x, self.fc1)
+        h = dense(copy_to_model(x, self.group), self.fc1)
         h = gelu(h.reshape(-1, h.shape[-1])).view(h.shape)
-        return dense(h, self.fc2)
+        return dense_row_parallel(h, self.fc2, self.group)
 
 
 class TransformerBlock(nn.Module):

@@ -23,27 +23,47 @@ moments and the update run over the trainable ones only, as the JAX
 package's ``optax.multi_transform`` with ``set_to_zero`` does; the frozen
 ones keep their bits, and the EMA still averages every parameter, as the
 JAX step's EMA after its generic update does.
+
+Under tensor parallelism (``parallel/shardings.py``) the gradients of the
+split parameters are this rank's shards: the norm's square sum takes each
+replicated gradient once and the shards' squares summed over the model
+group, so every rank clips by JAX's global norm.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from image_classification_tpu_torch.train.train_state import TrainState, ema_update
 
 _INT32_MAX = 2**31 - 1
 
 
+def _global_norm(grads: list[torch.Tensor], sharded: list[bool] | None,
+                 model_group) -> torch.Tensor:
+    norms = torch._foreach_norm(grads)
+    if sharded is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    whole = [n for n, s in zip(norms, sharded) if not s]
+    parts = torch.stack([n for n, s in zip(norms, sharded) if s]).square().sum()
+    dist.all_reduce(parts, group=model_group)
+    return torch.sqrt((torch.stack(whole).square().sum() if whole else 0.0) + parts)
+
+
 @torch.no_grad()
 def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
-                    tx, cfg, trainable: list[int] | None = None) -> torch.Tensor | None:
+                    tx, cfg, trainable: list[int] | None = None,
+                    sharded: list[bool] | None = None,
+                    model_group=None) -> torch.Tensor | None:
     """Apply one update to ``state`` in place (parameters, ``mu``, ``nu``,
     EMA, ``count``). ``grads`` align with ``state.params()``, or with its
     entries at ``trainable`` when given (the others are frozen); ``tx`` is
     ``train/optim.py:build_optimizer``'s result. Returns the global gradient
     norm (a device scalar) where the clip or ``cfg.debug_nans`` needs it,
-    else None."""
+    else None. ``sharded`` (aligned with ``grads``) marks the gradients
+    split over ``model_group``."""
     all_params = state.params()
     params, mu, nu = all_params, state.mu, state.nu
     if trainable is not None:
@@ -54,7 +74,7 @@ def fused_adamw_ema(grads: list[torch.Tensor], state: TrainState, *,
 
     gnorm = None
     if tx.gradient_clip_val > 0 or cfg.debug_nans:
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        gnorm = _global_norm(grads, sharded, model_group)
     if tx.gradient_clip_val > 0:
         # the clip value stays a Python scalar (cast to f32 by each op): a
         # tensor made from it would be a host copy that waits for the card

@@ -21,8 +21,10 @@ each fold result by its member's weight split evenly over the member's
 surviving folds. A member whose folds all fail (a ViT at a size that is not
 a multiple of its patch, as V2's 60x80) leaves no result and no weight.
 
-Not ported, raising ``NotImplementedError``: ``fold_parallel`` (ROADMAP
-queue A, item 6).
+With a ``mesh`` (``parallel/mesh.py``) the loaders yield each rank its
+rows of the data axis; rank 0 decodes (and writes the decode cache and the
+stats) before the other ranks read them. ``fold_parallel=true`` trains the
+folds side by side, one rank group each (``train/foldpar.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ from image_classification_tpu_torch.data.splits import (
     stratified_split,
 )
 from image_classification_tpu_torch.data.stats import NORM_STATS_FILE, resolve_norm_stats
+from image_classification_tpu_torch.parallel.distributed import is_primary, primary_first
+from image_classification_tpu_torch.parallel.mesh import DATA_AXIS, check_batch_divisible
 from image_classification_tpu_torch.train.loop import FoldResult, train_fold
 
 logger = logging.getLogger("ic_tpu_torch")
@@ -66,7 +70,7 @@ def build_source(cfg, manifest: Manifest, img_dir: str) -> ImageSource:
 
 
 def make_fold_loaders(cfg, source, manifest: Manifest, train_idx, val_idx,
-                      device: str | torch.device = "cuda"):
+                      device: str | torch.device = "cuda", mesh=None):
     train_labels = manifest.labels[train_idx]
     if cfg.oversample_min_samples > 0:
         extra = oversample_minority(train_labels, cfg.oversample_min_samples,
@@ -78,23 +82,25 @@ def make_fold_loaders(cfg, source, manifest: Manifest, train_idx, val_idx,
                                        seed=cfg.seed)
     else:
         sampler = ShuffleSampler(len(train_idx), seed=cfg.seed)
+    shard = {}
+    if mesh is not None:
+        check_batch_divisible(cfg.batch_size, mesh)
+        shard = dict(process_index=mesh.index(DATA_AXIS),
+                     process_count=mesh.size(DATA_AXIS))
     train_loader = DataLoader(source, manifest, indices=train_idx,
                               batch_size=cfg.batch_size, sampler=sampler,
                               drop_last=True, device=device,
-                              prefetch_depth=cfg.prefetch_depth)
+                              prefetch_depth=cfg.prefetch_depth, **shard)
     val_loader = DataLoader(source, manifest, indices=val_idx,
                             batch_size=cfg.batch_size * cfg.val_batch_multiplier,
                             sampler=SequentialSampler(len(val_idx)), pad_last=True,
-                            device=device, prefetch_depth=cfg.prefetch_depth)
+                            device=device, prefetch_depth=cfg.prefetch_depth, **shard)
     return train_loader, val_loader, train_labels
 
 
 def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
                  resume: bool = False, model_name: str | None = None,
-                 device: str | torch.device = "cuda") -> list[FoldResult]:
-    if cfg.fold_parallel:
-        raise NotImplementedError("fold_parallel: training the folds side by side "
-                                  "is not ported (ROADMAP queue A, item 6)")
+                 device: str | torch.device = "cuda", mesh=None) -> list[FoldResult]:
     if manifest is None:
         manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
     logger.info("class distribution: %s",
@@ -104,12 +110,16 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
         logger.warning("%d/%d train images missing on disk (first 10: %s); a "
                        "complete decode cache serves them, else fallback images "
                        "are substituted", len(missing), len(manifest), missing[:10])
-    if source is None:
-        source = build_source(cfg, manifest, cfg.train_dir)
     # the stats ship with the checkpoints, so `cli predict` normalizes as
     # training did without the train set
-    cfg = resolve_norm_stats(cfg, source, save_to=os.path.join(cfg.model_save_path,
-                                                               NORM_STATS_FILE))
+    save_to = os.path.join(cfg.model_save_path, NORM_STATS_FILE) if is_primary() else None
+
+    def prepare(source=source):
+        if source is None:
+            source = build_source(cfg, manifest, cfg.train_dir)
+        return source, resolve_norm_stats(cfg, source, save_to=save_to)
+
+    source, cfg = primary_first(prepare)
     results: list[FoldResult] = []
     if cfg.split_mode == "holdout":
         # every class oversampled to 2 members so that it can be stratified,
@@ -123,16 +133,22 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
     else:
         splits = stratified_kfold(manifest.labels, cfg.num_folds, seed=cfg.fold_seed)
         n_total = cfg.num_folds
+    if cfg.fold_parallel:
+        from image_classification_tpu_torch.train.foldpar import train_k_fold_parallel
+
+        return train_k_fold_parallel(cfg, list(splits), source, manifest, mesh,
+                                     device=device, model_name=model_name,
+                                     resume=resume)
     for fold, (train_idx, val_idx) in enumerate(splits, start=1):
         logger.info("fold %d/%d: train %d / val %d", fold, n_total,
                     len(train_idx), len(val_idx))
         try:
             train_loader, val_loader, train_labels = make_fold_loaders(
-                cfg, source, manifest, train_idx, val_idx, device=device)
+                cfg, source, manifest, train_idx, val_idx, device=device, mesh=mesh)
             class_counts = np.bincount(train_labels, minlength=cfg.num_classes)
             result = train_fold(cfg, train_loader, val_loader, fold=fold,
                                 class_counts=class_counts, resume=resume,
-                                model_name=model_name)
+                                model_name=model_name, mesh=mesh)
             results.append(result)
             logger.info("fold %d done: best val acc %.4f", fold, result.best_val_acc)
         except KeyboardInterrupt:
@@ -144,8 +160,8 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
     return results
 
 
-def train_ensemble(cfg, resume: bool = False, device: str | torch.device = "cuda"
-                   ) -> tuple[list[FoldResult], list[float]]:
+def train_ensemble(cfg, resume: bool = False, device: str | torch.device = "cuda",
+                   mesh=None) -> tuple[list[FoldResult], list[float]]:
     """Multi-architecture ensemble training (JAX ``train_ensemble``): the
     full K-fold per member of ``cfg.ensemble_models`` (or ``model_name``
     alone), weights ``cfg.ensemble_weights`` (default 1 each); returns all
@@ -156,7 +172,7 @@ def train_ensemble(cfg, resume: bool = False, device: str | torch.device = "cuda
     if len(arch_weights) != len(names):
         raise ValueError("ensemble_weights length must match ensemble_models")
     manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
-    source = build_source(cfg, manifest, cfg.train_dir)
+    source = primary_first(lambda: build_source(cfg, manifest, cfg.train_dir))
     results: list[FoldResult] = []
     weights: list[float] = []
     for name, aw in zip(names, arch_weights):
@@ -165,7 +181,7 @@ def train_ensemble(cfg, resume: bool = False, device: str | torch.device = "cuda
                                model_save_path=f"{cfg.model_save_path}/{name}",
                                output_dir=f"{cfg.output_dir}/{name}")
         arch_results = train_k_fold(arch_cfg, manifest=manifest, source=source,
-                                    resume=resume, device=device)
+                                    resume=resume, device=device, mesh=mesh)
         results.extend(arch_results)
         weights.extend([aw / max(1, len(arch_results))] * len(arch_results))
     return results, weights

@@ -22,6 +22,17 @@ the loss and the global gradient norm are finite, and raises
 ``FloatingPointError`` naming the fold and step; the check reads the card,
 so it runs only when the key is set.
 
+Data parallelism (``mesh``, ``parallel/mesh.py``): every rank of the
+fold's data axis runs this loop on its rows of each global batch; the steps
+reduce over the ranks (``train/step.py``), so the metrics, and with them
+every decision (best checkpoint, patience, plateau), are the same on every
+rank. A model axis splits the MLP pairs (``parallel/shardings.py``); the
+checkpoints hold whole tensors. Only the fold's primary rank (data and
+model index 0) writes its files: ``metrics.jsonl``, the best checkpoints,
+the train states and the LR plot. A :class:`FoldRun` says how the fold
+shares its run with others: the sequential loop's defaults here, the
+side-by-side folds of ``train/foldpar.py`` there.
+
 Not ported: the compiled-step sharing across folds (``program_sig`` /
 ``shared``), which exists to reuse XLA compiles.
 """
@@ -50,6 +61,8 @@ from image_classification_tpu_torch.train.schedule import (
     warmup_cosine_schedule,
 )
 from image_classification_tpu_torch.models.layers import drop_sites
+from image_classification_tpu_torch.parallel.mesh import DATA_AXIS
+from image_classification_tpu_torch.parallel.shardings import gather_tree, shard_model
 from image_classification_tpu_torch.train.step import (
     make_bn_update_step,
     make_eval_step,
@@ -85,6 +98,36 @@ def _append_metrics(output_dir: str, fold: int, record: dict) -> None:
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "metrics.jsonl"), "a") as f:
         f.write(json.dumps({"fold": fold, **record}) + "\n")
+
+
+class FoldRun:
+    """How :func:`train_fold` runs beside other folds; these are the
+    sequential loop's ways, and ``train/foldpar.py`` overrides them."""
+
+    steps_per_epoch: int | None = None   # None: the whole train loader
+
+    def joint_stop(self, stopping: bool) -> bool:
+        """Whether the fold stops, given whether it is past its patience."""
+        return stopping
+
+    def append_metrics(self, cfg, fold: int, record: dict, primary: bool) -> None:
+        if primary:
+            _append_metrics(cfg.output_dir, fold, record)
+
+    def save_state(self, writer, cfg, fold: int, state, epoch: int,
+                   host_state: dict, primary: bool) -> None:
+        tree = ckpt.state_tree(state)   # every rank: a collective under TP
+        if not primary:
+            return
+        if cfg.async_checkpoint:
+            writer.submit(ckpt.save_train_state, cfg.output_dir, fold,
+                          ckpt.snapshot(tree), epoch, cfg, host_state=host_state)
+        else:
+            ckpt.save_train_state(cfg.output_dir, fold, tree, epoch, cfg,
+                                  host_state=host_state)
+
+    def load_state(self, cfg, fold: int, state):
+        return ckpt.load_train_state(cfg.output_dir, fold, state)
 
 
 def check_finite(metrics: dict, fold: int, epoch: int, step: int) -> None:
@@ -151,42 +194,53 @@ def evaluate(eval_step, state, loader) -> dict:
 
 
 def finalize_swa(bundle: ModelBundle, cfg, state, train_loader, val_loader,
-                 eval_step):
+                 eval_step, mesh=None, steps: int | None = None):
     """SWA's average as the fold's model: its weights go into the model
     (the last weights are not needed after the last epoch) with EMA off;
     a model with BatchNorm refreshes its running statistics with one
-    train-mode forward per train batch (epoch 0's order), on from the live
-    ones; then it validates. Returns (the SWA state, its validation)."""
+    train-mode forward per train batch (epoch 0's order, its first
+    ``steps`` batches when given), on from the live ones; then it
+    validates. Returns (the SWA state, its validation)."""
     swa_state = dataclasses.replace(state, ema=None)
     with torch.no_grad():
         torch._foreach_copy_(swa_state.params(), state.swa)
     if bundle.has_batch_stats:
-        bn_step = make_bn_update_step(bundle, cfg)
+        bn_step = make_bn_update_step(bundle, cfg, mesh=mesh)
         params = swa_state.eval_params(use_ema=False)
         train_loader.set_epoch(0)
-        for batch in train_loader:
+        for i, batch in enumerate(train_loader):
+            if steps is not None and i == steps:
+                break
             bn_step(params, batch)
     return swa_state, evaluate(eval_step, swa_state, val_loader)
 
 
 def train_fold(cfg, train_loader, val_loader, fold: int = 1,
                class_counts: np.ndarray | None = None, resume: bool = False,
-               model_name: str | None = None) -> FoldResult:
+               model_name: str | None = None, mesh=None,
+               run: FoldRun | None = None) -> FoldResult:
     """Train one fold on ``train_loader``'s device, validating on
     ``val_loader`` after every epoch; returns the best weights (by val
-    accuracy, SWA's average included) and the per-epoch history."""
+    accuracy, SWA's average included) and the per-epoch history. With a
+    ``mesh`` the loaders yield this rank's rows of the data axis; only the
+    primary rank's result is sure to carry the best weights."""
+    run = run or FoldRun()
     device = train_loader.device
-    steps_per_epoch = len(train_loader)
+    group = None if mesh is None else mesh.group(DATA_AXIS)
+    n_data = 1 if mesh is None else mesh.size(DATA_AXIS)
+    primary = mesh is None or mesh.is_primary
+    steps_per_epoch = run.steps_per_epoch or len(train_loader)
     bundle = create_model(cfg, model_name, generator=torch.Generator().manual_seed(
         derived_seed(cfg.seed, fold)))
     load_pretrained_into(bundle.module, cfg)
     bundle.module.to(device)
+    shard_model(bundle.module, mesh)
     n_params = sum(p.numel() for p in bundle.module.parameters())
     logger.info("fold %d: %s with %.2fM parameters", fold, bundle.name, n_params / 1e6)
 
     criterion = build_criterion(
         cfg, class_counts=None if class_counts is None
-        else torch.as_tensor(class_counts, device=device))
+        else torch.as_tensor(class_counts, device=device), group=group)
     lr_schedule = build_lr_schedule(cfg, steps_per_epoch)
     tx = build_optimizer(cfg, lr_schedule)
     plateau = (PlateauScheduler(cfg.lr, cfg.plateau_factor, cfg.plateau_patience)
@@ -196,7 +250,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
     start_epoch = 0
     resumed_host: dict = {}
     if resume:
-        restored = ckpt.load_train_state(cfg.output_dir, fold, state)
+        restored = run.load_state(cfg, fold, state)
         if restored is not None:
             state, start_epoch, resumed_host = restored
             logger.info("fold %d: resumed at epoch %d", fold, start_epoch)
@@ -209,10 +263,10 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
         size = progressive_size(cfg, epoch)
         if size not in step_cache:
             step_cache[size] = make_train_step(bundle, cfg.replace(image_size=size),
-                                               tx, criterion)
+                                               tx, criterion, mesh=mesh)
         return step_cache[size]
 
-    eval_step = make_eval_step(bundle, cfg, use_ema=cfg.ema_eval)
+    eval_step = make_eval_step(bundle, cfg, use_ema=cfg.ema_eval, mesh=mesh)
     draws = cfg.aug_enabled or bool(drop_sites(bundle.module))
     generator = torch.Generator(device=device) if draws else None
     use_ema_eval = cfg.use_ema and cfg.ema_eval
@@ -228,11 +282,13 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
         tx = set_learning_rate(tx, plateau.lr)
     if best_val_acc > -1.0:
         # the on-disk best, so the result carries it even if no epoch after
-        # the resume improves on it
+        # the resume improves on it (every rank reads it, so that all agree
+        # on whether the final weights stand in below)
         try:
             best_variables, _ = ckpt.load_best(cfg.model_save_path, fold)
         except FileNotFoundError:
             logger.warning("fold %d: could not reload best checkpoint", fold)
+    have_best = bool(best_variables)   # the same on every rank
     history: list[dict] = []
     lr_monitor = LRMonitor()
     # Background writer: device snapshots go to a thread that copies them to
@@ -249,12 +305,12 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
         timer = StepTimer()
         losses, accs = [], []
         it = iter(train_loader)
-        profiled = bool(cfg.profile_dir) and epoch == start_epoch + 1
+        profiled = bool(cfg.profile_dir) and epoch == start_epoch + 1 and primary
         region = (trace(cfg.profile_dir, f"fold{fold}_epoch{epoch + 1}")
                   if profiled else contextlib.nullcontext())
         with region:
             step_i = 0
-            while True:
+            while step_i < steps_per_epoch:
                 with timer.data_wait():
                     batch = next(it, None)
                 if batch is None:
@@ -262,7 +318,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
                 if generator is not None:
                     generator.manual_seed(derived_seed(cfg.seed, fold, "steps",
                                                        state.step))
-                with timer.compute(n_images=batch["image"].shape[0]):
+                with timer.compute(n_images=batch["image"].shape[0] * n_data):
                     state, metrics = train_step(state, batch, generator=generator)
                 if cfg.debug_nans:
                     check_finite(metrics, fold, epoch, state.step)
@@ -294,7 +350,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
             **perf,
         }
         history.append(record)
-        _append_metrics(cfg.output_dir, fold, record)
+        run.append_metrics(cfg, fold, record, primary)
         logger.info(
             "fold %d epoch %d/%d: train %.4f/%.4f val %.4f/%.4f f1 %.4f "
             "(%.1f img/s, duty %.1f%%)", fold, epoch + 1, cfg.epochs, train_loss,
@@ -309,13 +365,17 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
         if improved_acc:
             best_val_acc = val["accuracy"]
             patience_counter = 0
+            have_best = True
         else:
             patience_counter += 1
         if improved_loss:
             best_val_loss = val["loss"]
         if improved_acc or improved_loss:
-            # one snapshot serves both tiers (the same weights this epoch)
-            weights = state.eval_state_dict(use_ema=use_ema_eval)
+            # one snapshot serves both tiers (the same weights this epoch);
+            # whole tensors under tensor parallelism, gathered by every rank
+            weights = gather_tree(state.eval_state_dict(use_ema=use_ema_eval),
+                                  bundle.module)
+        if (improved_acc or improved_loss) and primary:
 
             def best_job(w, acc=val["accuracy"], loss=val["loss"],
                          ia=improved_acc, il=improved_loss) -> dict:
@@ -348,7 +408,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
 
         lr_monitor.record(state.step, current_lr())
 
-        stopping = patience_counter >= cfg.patience
+        stopping = run.joint_stop(patience_counter >= cfg.patience)
         if cfg.save_state_every > 0 and (
                 (epoch + 1 - start_epoch) % cfg.save_state_every == 0
                 or epoch == cfg.epochs - 1 or stopping):
@@ -358,13 +418,7 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
                 "patience_counter": patience_counter,
                 "plateau": plateau.state_dict() if plateau is not None else None,
             }
-            if cfg.async_checkpoint:
-                writer.submit(ckpt.save_train_state, cfg.output_dir, fold,
-                              ckpt.snapshot(ckpt.state_tree(state)), epoch, cfg,
-                              host_state=host_state)
-            else:
-                ckpt.save_train_state(cfg.output_dir, fold, state, epoch, cfg,
-                                      host_state=host_state)
+            run.save_state(writer, cfg, fold, state, epoch, host_state, primary)
 
         if stopping:
             logger.info("fold %d: early stopping after epoch %d", fold, epoch + 1)
@@ -378,31 +432,37 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
 
     if cfg.use_swa and state.swa_count > 0:
         swa_state, swa_val = finalize_swa(bundle, cfg, state, train_loader,
-                                          val_loader, eval_step)
+                                          val_loader, eval_step, mesh=mesh,
+                                          steps=run.steps_per_epoch)
         logger.info("fold %d SWA (%d snapshots): val %.4f/%.4f", fold,
                     state.swa_count, swa_val["loss"], swa_val["accuracy"])
         wins_acc = swa_val["accuracy"] > best_val_acc
         wins_loss = cfg.save_best_loss and swa_val["loss"] < best_val_loss
         if wins_acc or wins_loss:
-            host = ckpt.to_host(swa_state.eval_state_dict(use_ema=False))
+            host = ckpt.to_host(gather_tree(swa_state.eval_state_dict(use_ema=False),
+                                            bundle.module))
         if wins_acc:
             best_val_acc = swa_val["accuracy"]
-            best_variables = host
-            ckpt.save_best(cfg.model_save_path, fold, host, best_val_acc,
-                           val_loss=swa_val["loss"])
+            have_best = True
+            if primary:
+                best_variables = host
+                ckpt.save_best(cfg.model_save_path, fold, host, best_val_acc,
+                               val_loss=swa_val["loss"])
         if wins_loss:
             # SWA competes in the loss tier too
             best_val_loss = swa_val["loss"]
-            ckpt.save_best(cfg.model_save_path, fold, host, swa_val["accuracy"],
-                           val_loss=swa_val["loss"], metric="loss")
+            if primary:
+                ckpt.save_best(cfg.model_save_path, fold, host, swa_val["accuracy"],
+                               val_loss=swa_val["loss"], metric="loss")
 
-    if lr_monitor.lrs:
+    if lr_monitor.lrs and primary:
         try:
             lr_monitor.plot(os.path.join(cfg.output_dir, f"lr_curve_fold{fold}.png"))
         except Exception as e:  # plotting must never kill a training run
             logger.debug("fold %d: LR plot skipped (%s)", fold, e)
 
-    if not best_variables:  # zero epochs or all NaN: the final weights
-        best_variables = ckpt.to_host(state.eval_state_dict(use_ema=False))
+    if not have_best:  # zero epochs or all NaN: the final weights
+        best_variables = ckpt.to_host(gather_tree(state.eval_state_dict(use_ema=False),
+                                                  bundle.module))
     return FoldResult(fold=fold, best_val_acc=best_val_acc,
                       best_variables=best_variables, bundle=bundle, history=history)

@@ -22,6 +22,22 @@ the loss is the mean of the microbatch losses and the accuracy is taken
 on the main head against the integer labels from before the mix; EMA
 updates once per optimizer step. Metrics come back as device tensors:
 nothing in a step waits for the card.
+
+Data parallelism (``mesh`` with a data axis of D > 1 ranks,
+``parallel/mesh.py``): each rank holds rows ``[d*B/D, (d+1)*B/D)`` of the
+global batch of B, and the step computes the JAX step's function on the
+global batch, as the SPMD program over a sharded batch does. Every draw is
+made once for the global batch, from the same seeded generator on every
+rank (or handed in whole), and each rank takes its rows
+(:func:`local_draws`); the mix gathers its partners across ranks
+(``aug/mix.py``); BatchNorm reduces its statistics over the ranks
+(``models/layers.py:batchnorm_group``); microbatch ``k`` is global rows
+``k::accum``, of which this rank holds a contiguous run; each loss is this
+rank's sum over the global row count (``train/loss.py``); the gradients
+are summed over the ranks before the fused update, so every rank applies
+the global gradient and the ranks' states stay bit-identical; the
+metrics are sums over the ranks. Every kernel runs on the rank's own
+rows.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from image_classification_tpu_torch.aug.mix import (
     MixCfg,
@@ -44,10 +61,14 @@ from image_classification_tpu_torch.aug.pipeline import (
     eval_preprocess,
 )
 from image_classification_tpu_torch.models.layers import (
+    batchnorm_group,
     draw_drop_masks,
     drop_masks,
     drop_sites,
 )
+from image_classification_tpu_torch.parallel.distributed import all_reduce_sum_
+from image_classification_tpu_torch.parallel.mesh import DATA_AXIS
+from image_classification_tpu_torch.parallel.shardings import sharded_mask, tensor_parallel
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import smoothed_cross_entropy
 from image_classification_tpu_torch.train.optim import trainable_indices
@@ -104,16 +125,54 @@ def draw_train_step(generator: torch.Generator, shape, cfg, sites=()) -> StepDra
     return StepDraws(aug_d, mix_d, drop)
 
 
-def make_batch_augment(cfg) -> Callable:
+def data_shard(mesh) -> tuple[int, int, object]:
+    """(this rank's index on the data axis, the axis' size, its group);
+    (0, 1, None) without a mesh."""
+    if mesh is None:
+        return 0, 1, None
+    return mesh.index(DATA_AXIS), mesh.size(DATA_AXIS), mesh.group(DATA_AXIS)
+
+
+def _shard(tree, index: int, count: int):
+    """Part ``index`` of ``count`` equal runs along dim 0 of every tensor."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        n = tree.shape[0] // count
+        return tree[index * n:(index + 1) * n]
+    parts = (_shard(x, index, count) for x in tree)
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+def local_draws(draws: StepDraws, index: int, count: int, sites=()) -> StepDraws:
+    """The rows of ``draws`` (a global batch's) that data rank ``index`` of
+    ``count`` holds: its contiguous run of the aug's and the mix's per-row
+    draws (the mix partners stay global row numbers), and of each
+    microbatch's per-row drop masks (microbatch ``k``, global rows
+    ``k::accum``, holds this rank's local microbatch ``k`` as the same
+    run of its rows); a mask shared by every row (ViT's attention dropout)
+    stays whole. ``sites``: the drop sites the masks belong to."""
+    if count == 1:
+        return draws
+    drop = tuple(tuple(_shard(mask, index, count) if s.per_row else mask
+                       for s, mask in zip(sites, masks)) for masks in draws.drop)
+    return StepDraws(_shard(draws.aug, index, count), _shard(draws.mix, index, count),
+                     drop)
+
+
+def make_batch_augment(cfg, mesh=None) -> Callable:
     """``augment(batch, generator=None, draws=None) -> (images, targets)``:
     the train step's input stage. With ``aug_enabled=true``: the
     augmentation of the uint8 'image' batch, then MixUp/CutMix (soft f32
     targets) when the config mixes, from ``draws`` or else fresh draws on
-    ``generator``. With ``aug_enabled=false``: the batch as it is."""
+    ``generator``. With ``aug_enabled=false``: the batch as it is. Under
+    data parallelism (``mesh``) ``batch`` holds this rank's rows, and
+    ``draws`` (or the fresh ones) are the global batch's."""
     if not cfg.aug_enabled:
         return lambda batch, *_, **__: (batch["image"], batch["label"])
     aug = aug_configs_from(cfg)
     mix = mix_config(cfg)
+    index, count, group = data_shard(mesh)
 
     def augment(batch: dict, generator: torch.Generator | None = None,
                 draws: StepDraws | None = None):
@@ -122,16 +181,18 @@ def make_batch_augment(cfg) -> Callable:
             if generator is None:
                 raise ValueError("aug_enabled=true: pass a torch.Generator on "
                                  "the model's device, or ready-made draws")
-            draws = draw_train_step(generator, tuple(images_u8.shape), cfg)
+            shape = (images_u8.shape[0] * count, *images_u8.shape[1:])
+            draws = draw_train_step(generator, shape, cfg)
+        draws = local_draws(draws, index, count)
         images = apply_train_augment(images_u8, draws.aug, aug)
         if mix is None:
             return images, labels
-        return mixup_cutmix_batch(images, labels, draws.mix, mix)
+        return mixup_cutmix_batch(images, labels, draws.mix, mix, group)
 
     return augment
 
 
-def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
+def make_train_step(bundle, cfg, tx, criterion: Callable, mesh=None) -> Callable:
     """Build ``train_step(state, batch, generator=None, draws=None) ->
     (state, metrics)``: the input stage of :func:`make_batch_augment`, one
     optimizer step over ``cfg.gradient_accumulation_steps`` microbatches,
@@ -144,14 +205,26 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
     result. With ``freeze_stages > 0`` only the trainable parameters are
     differentiated and updated. A generator (or draws) is needed whenever
     the step draws anything: with the aug on, or a model with drop
-    sites."""
-    augment = make_batch_augment(cfg)
+    sites. With a ``mesh`` of data size D the batch is this rank's B/D
+    rows, ``draws`` are the global batch's, and ``criterion`` must be built
+    with the mesh's data group (``build_criterion(..., group=...)``). A
+    model split over the model axis (``parallel/shardings.py:shard_model``,
+    before this call) updates its shards."""
+    index, count, group = data_shard(mesh)
+    if getattr(criterion, "group", None) is not group:
+        raise ValueError("the criterion's process group is not the mesh's data "
+                         "group: build it with build_criterion(..., group=...)")
+    augment = make_batch_augment(cfg, mesh)
     sites = drop_sites(bundle.module)
     params = list(bundle.module.parameters())
-    trainable = trainable_indices([n for n, _ in bundle.module.named_parameters()],
-                                  tx.freeze_stages)
+    names = [n for n, _ in bundle.module.named_parameters()]
+    trainable = trainable_indices(names, tx.freeze_stages)
+    # tensor parallelism: the split parameters' gradients are shards
+    sharded = sharded_mask(bundle.module, names)
+    tp = tensor_parallel(bundle.module)
     if trainable is not None:
         params = [params[i] for i in trainable]
+        sharded = None if sharded is None else [sharded[i] for i in trainable]
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None,
@@ -160,12 +233,16 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
             if generator is None:
                 raise ValueError("this train step draws (aug or drop masks): pass a "
                                  "torch.Generator on the model's device, or draws")
-            draws = draw_train_step(generator, tuple(batch["image"].shape), cfg, sites)
+            shape = (batch["image"].shape[0] * count, *batch["image"].shape[1:])
+            draws = draw_train_step(generator, shape, cfg, sites)
         images, targets = augment(batch, draws=draws)
+        drop = None if draws is None else local_draws(draws, index, count, sites).drop
         grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
                                           images, targets, batch["label"], params,
-                                          drop=None if draws is None else draws.drop)
-        gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg, trainable=trainable)
+                                          drop=drop, group=group)
+        all_reduce_sum_(grads, group)
+        gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg, trainable=trainable,
+                                sharded=sharded, model_group=None if tp is None else tp.group)
         if gnorm is not None:
             metrics["grad_norm"] = gnorm
         state.step += 1
@@ -177,7 +254,8 @@ def make_train_step(bundle, cfg, tx, criterion: Callable) -> Callable:
 def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
                      images: torch.Tensor, targets: torch.Tensor,
                      labels: torch.Tensor | None = None,
-                     params: list[torch.Tensor] | None = None, drop=None):
+                     params: list[torch.Tensor] | None = None, drop=None,
+                     group=None):
     """The gradient half of the train step, with the model in train mode:
     ``(grads, metrics)``, the gradients aligned with ``params`` (default
     ``model.parameters()``; autograd runs no part of the backward that only
@@ -187,7 +265,10 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
     (``StepDraws.drop``). ``targets`` are what the loss takes (integer
     labels, or soft (B, classes) ones after a mix); the accuracy counts
     argmax hits against the integer ``labels`` (default: ``targets``),
-    which after a mix are the labels from before it."""
+    which after a mix are the labels from before it. With a data-parallel
+    ``group`` the rows are this rank's of the global batch: BatchNorm
+    reduces over the group, the gradients are this rank's share (the
+    caller sums them over the group) and the metrics the global batch's."""
     if labels is None:
         labels = targets
     accum = cfg.gradient_accumulation_steps
@@ -201,7 +282,7 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
     grads = None
     losses, correct = [], []
     for k in range(accum):
-        with drop_masks(sites, drop[k] if sites else ()):
+        with drop_masks(sites, drop[k] if sites else ()), batchnorm_group(model, group):
             outputs = model(images[k::accum])
         loss = criterion(outputs, targets[k::accum])
         g = torch.autograd.grad(loss, params)
@@ -211,11 +292,16 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
                        == labels[k::accum].reshape(-1))
     if cfg.grad_accum_reduction == "mean":
         torch._foreach_div_(grads, float(accum))
-    return grads, {"loss": torch.stack(losses).mean(),
-                   "accuracy": torch.cat(correct).float().mean()}
+    if group is None:
+        return grads, {"loss": torch.stack(losses).mean(),
+                       "accuracy": torch.cat(correct).float().mean()}
+    sums = torch.cat([torch.stack(losses), torch.cat(correct).float().sum()[None]])
+    dist.all_reduce(sums, group=group)
+    rows = images.shape[0] * dist.get_world_size(group)
+    return grads, {"loss": sums[:accum].mean(), "accuracy": sums[accum] / rows}
 
 
-def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
+def make_eval_step(bundle, cfg, use_ema: bool = True, mesh=None) -> Callable:
     """Build ``eval_step(state, batch) -> metrics`` with masked sums, so the
     padding rows of a last batch count for nothing. The deep-supervised
     model is scored on its main head with label-smoothed CE, on the EMA
@@ -223,9 +309,11 @@ def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
     module's live running statistics (as the JAX step pairs the EMA
     parameters with the live ``batch_stats``). ``batch``: 'image' uint8
     (B, h, w, 3), 'label' (B,) and 'mask' (B,) bool on the device (a host
-    mask is copied, and the copy waits for the card)."""
+    mask is copied, and the copy waits for the card). With a ``mesh`` the
+    batch is this rank's rows and the sums are those over the data axis."""
     dtype = compute_dtype(cfg)
     k = cfg.num_classes
+    group = data_shard(mesh)[2]
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
@@ -244,17 +332,19 @@ def make_eval_step(bundle, cfg, use_ema: bool = True) -> Callable:
         preds = logits.argmax(dim=-1)
         cm = torch.zeros(k * k, dtype=torch.float32, device=logits.device)
         cm.index_add_(0, labels * k + preds, mask)
+        sums = [(per * mask).sum(), ((preds == labels) * mask).sum(), mask.sum(), cm]
+        all_reduce_sum_(sums, group)
         return {
-            "loss_sum": (per * mask).sum(),
-            "correct": ((preds == labels) * mask).sum(),
-            "count": mask.sum(),
-            "confusion": cm.reshape(k, k),
+            "loss_sum": sums[0],
+            "correct": sums[1],
+            "count": sums[2],
+            "confusion": sums[3].reshape(k, k),
         }
 
     return eval_step
 
 
-def make_bn_update_step(bundle, cfg) -> Callable:
+def make_bn_update_step(bundle, cfg, mesh=None) -> Callable:
     """``bn_step(params, batch)``: one forward in train mode with the
     parameters ``params`` (a dict by name, e.g. SWA's average) on the
     ``eval_preprocess``-ed uint8 'image' batch, which updates the module's
@@ -263,10 +353,13 @@ def make_bn_update_step(bundle, cfg) -> Callable:
     batch of a size: a generator seeded 0 afresh per batch, as the JAX step
     passes ``jax.random.key(0)``. This is the JAX package's step, not
     torch's ``update_bn`` (which resets the statistics and averages them
-    equally)."""
+    equally). With a ``mesh`` the batch is this rank's rows: the statistics
+    are the global batch's and the masks this rank's rows of the global
+    batch's."""
     dtype = compute_dtype(cfg)
     model = bundle.module
     sites = drop_sites(model)
+    index, count, group = data_shard(mesh)
 
     @torch.no_grad()
     def bn_step(params: dict[str, torch.Tensor], batch: dict) -> None:
@@ -275,9 +368,10 @@ def make_bn_update_step(bundle, cfg) -> Callable:
             tuple(cfg.std), dtype=dtype, round_uint8=cfg.eval_resize_uint8,
         )
         gen = torch.Generator(device=images.device).manual_seed(0)
-        masks = draw_drop_masks(gen, sites, images.shape[0])
+        masks = draw_drop_masks(gen, sites, images.shape[0] * count)
+        masks = local_draws(StepDraws(None, None, (masks,)), index, count, sites).drop[0]
         set_mode(model, True)
-        with drop_masks(sites, masks):
+        with drop_masks(sites, masks), batchnorm_group(model, group):
             torch.func.functional_call(model, params, (images,))
 
     return bn_step

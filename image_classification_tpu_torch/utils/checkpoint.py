@@ -17,6 +17,11 @@ Two tiers, as in the JAX package:
   SWA count) with the epoch, the config and the trainer's host
   bookkeeping, in ``train_state_fold{k}.pt``, for an exact resume.
 
+Under tensor parallelism (``parallel/shardings.py``) both hold whole
+tensors: :func:`state_tree` gathers the split ones over the model group
+(each of its ranks calls it), and :func:`load_train_state` takes this
+rank's shard of each.
+
 Every file is written to a temporary sibling and swapped into place; the
 previous file survives as ``<path>.prev`` until the new one is complete, and
 ``load_train_state`` falls back to it after a crash in between.
@@ -30,6 +35,8 @@ import threading
 from typing import Any
 
 import torch
+
+from image_classification_tpu_torch.parallel.shardings import gather_tree, shard_tree
 
 
 class AsyncCheckpointWriter:
@@ -187,9 +194,10 @@ def resume_path(output_dir: str, fold: int) -> str:
 
 def state_tree(state) -> dict:
     """A ``TrainState``'s tensors keyed by parameter (or buffer) name, and
-    its counters."""
+    its counters; whole tensors under tensor parallelism (a collective of
+    the model group)."""
     names = state.names()
-    return {
+    return gather_tree({
         "model": dict(zip(names, state.params())),
         "buffers": state.buffers(),
         "ema": None if state.ema is None else dict(zip(names, state.ema)),
@@ -199,7 +207,7 @@ def state_tree(state) -> dict:
         "count": int(state.count),
         "step": int(state.step),
         "swa_count": int(state.swa_count),
-    }
+    }, state.model)
 
 
 def save_train_state(output_dir: str, fold: int, state: Any, epoch: int,
@@ -226,7 +234,7 @@ def load_train_state(output_dir: str, fold: int, state) -> tuple[Any, int, dict]
         os.replace(path + ".prev", path)
     if not os.path.exists(path):
         return None
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    tree = shard_tree(torch.load(path, map_location="cpu", weights_only=True), state.model)
     names = state.names()
     buffers = state.buffers()
     # files written before buffers and SWA were carried have neither

@@ -329,7 +329,10 @@ def test_progressive_size_matches_jax(epoch):
     {"drop_path_rate": 0.1}, {"ensemble_models": ("convnext_atto",)},
 ])
 def test_what_is_not_ported_raises(runs, over, tmp_path):
-    """``fold_parallel`` still raises. Tanh GELU, ConvNeXt's drop-path and
+    """``fold_parallel`` trains the folds side by side on 2 gloo ranks and
+    gives rank 0 one result per fold, each with its history and best
+    weights (the rank holding the other fold gets its own). Tanh GELU,
+    ConvNeXt's drop-path and
     the ensemble trainer are ported: tanh GELU trains fold 1 as JAX's
     ``train_fold`` does; a drop-path fold trains (finite losses) and draws
     one mask a step for each draw JAX's traced train-mode forward asks
@@ -339,8 +342,14 @@ def test_what_is_not_ported_raises(runs, over, tmp_path):
     kw = {**settings(runs["root"], "x", epochs=1), **over}
     cfg = Config(**kw).validate()
     if "fold_parallel" in over:
-        with pytest.raises(NotImplementedError):
-            kfold.train_k_fold(cfg, device="cpu")
+        from torch_spawn import kfold_worker, load_ranks, run_ranks
+
+        run_ranks(kfold_worker, 2, str(tmp_path), str(tmp_path), cfg)
+        first, second = load_ranks(str(tmp_path), 2)
+        names = set(create_model(cfg).module.state_dict())
+        assert [(f, n) for f, n, _ in first] == [(1, 1), (2, 1)]
+        assert [(f, n) for f, n, _ in second] == [(2, 1)]
+        assert all(set(keys) == names for _, _, keys in first + second)
     elif "gelu_approximate" in over:
         jkw = {**kw, "model_save_path": f"{tmp_path}/jax/m", "output_dir": f"{tmp_path}/jax/o"}
         jcfg = JaxConfig(**jkw).validate()
