@@ -140,10 +140,7 @@ from image_classification_tpu_torch.aug.randaug import (
 from image_classification_tpu_torch.infer import predict_ensemble
 from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
 from image_classification_tpu_torch.models.factory import create_model
-from image_classification_tpu_torch.models.layers import (
-    drop_path_rates,
-    drop_sites,
-)
+from image_classification_tpu_torch.models.layers import drop_sites
 from image_classification_tpu_torch.models.vit import VIT_CONFIGS
 from image_classification_tpu_torch.ops import (
     _build,
@@ -168,6 +165,35 @@ from image_classification_tpu_torch.ops import (
     warp_reference,
 )
 from image_classification_tpu_torch.ops.warp import STAGE_MAX_BYTES, warp_staged
+from image_classification_tpu_torch.tools.parallel_check import (
+    EFF_STATS_REL_L2,
+    NATIVE,
+    PAR_BF16_STATS_REL_L2,
+    PAR_ENTRY_LOSS_REL_TOL,
+    PAR_F32_LOSS_REL_TOL,
+    PAR_F32_STATS_REL_L2,
+    PAR_LOSS_REL_TOL,
+    STEPS_PER_EPOCH,
+    TRAIN_LOSS_REL_TOL,
+    WRAPPERS,
+    check_fold_parallel_run,
+    compare_with_sequential,
+    expected_launches,
+    model_launches,
+    par_compare,
+    par_job,
+    par_spawn,
+    par_step,
+    read_launches,
+    read_submission,
+    rel_l2,
+    require,
+    reset_launches,
+    seeded_model,
+    synthetic_images,
+    train_inputs,
+    train_model,
+)
 from image_classification_tpu_torch.train.loop import build_lr_schedule, evaluate
 from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import build_criterion
@@ -191,7 +217,6 @@ N_IMAGES = 100           # 2 batches of 64; the second is padded and masked
 # The f32 plain reference runs on the host CPU (the wrappers' path for CPU
 # tensors) at ~0.65 s per view-forward, so it scores the first N_REF images.
 N_REF = 16
-NATIVE = (60, 80)
 FOLD_SEEDS = (0, 1)
 # Stage sizes at 260 px: 65, 33, 17, 9 (flax SAME padding on odd sizes).
 STAGE_HW = (65, 33, 17, 9)
@@ -200,11 +225,6 @@ MICRO = 16               # train microbatch: batch 32 / gradient accumulation 2
 ACCUM = 2
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 REF_BATCH = 4            # images in the train step held against the f32 host step
-# The schedule's horizon needs a fold size: ~2/3 of a 44-class set of ~5000
-# images in batches of 32 gives ~100 optimizer steps an epoch. The state
-# starts at the end of warmup, where the LR peaks, so the checked update
-# moves every parameter.
-STEPS_PER_EPOCH = 100
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
@@ -253,7 +273,8 @@ PROB_TOL = 2e-3
 # run: cosine 0.99978, gradient rel L2 0.0123, update rel L2 0.083, as
 # ConvNeXt-B; loss rel err 6.0e-4, 1.7x inside the bound (its seeded
 # logits are larger, so the same bf16 noise in them moves the loss more).
-TRAIN_LOSS_REL_TOL = 1e-3
+# TRAIN_LOSS_REL_TOL (1e-3) is defined in tools/parallel_check.py, which
+# the scale-out's checks share.
 GRAD_MIN_COS = 0.999
 GRAD_REL_L2 = 0.03
 UPDATE_REL_L2 = 0.2
@@ -429,7 +450,7 @@ V31_WARP_BATCH = 128
 # 0.053). The bf16 bounds are about twice the largest measured; the f32
 # bounds are over 10x theirs.
 EFF_LOSS_REL_TOL = 2e-2
-EFF_STATS_REL_L2 = 0.15
+# EFF_STATS_REL_L2 (0.15): tools/parallel_check.py, as TRAIN_LOSS_REL_TOL.
 EFF_F32_LOSS_REL_TOL = 1e-5
 EFF_F32_STATS_REL_L2 = 1e-4
 # V2 as shipped: configs/v2_convbase.json's ConvNeXt-B + ViT-B/16 +
@@ -443,31 +464,10 @@ V2E_MEMBERS = ("convnext_base", "vit_base_patch16_224", "deit_base_patch16_224")
 # gloo (NCCL refuses two ranks on one device), each with half of the global
 # batch and its rows of one global set of draws, against one process with
 # the whole batch; then NCCL at world 1; then the fold-parallel entry point.
+# The steps, the comparison and the PAR_* bounds with their reasons are
+# tools/parallel_check.py's, which tools/run_multicard.py runs on four cards.
 PAR_WORLD = 2
-PAR_TIMED_STEPS = 2       # steps each rank times after the compared one
-PAR_RDZV_TIMEOUT_S = 300
-# 2 ranks against 1 on the same global batch, weights and draws, both on
-# the card in the same dtype: each rank runs its kernels on its half of
-# each microbatch (other GEMM shapes, so other bf16 roundings of the same
-# rows) and the gradients add in another order, so the loss keeps the
-# spirit of TRAIN_LOSS_REL_TOL; the parameters and EMA, one Adam step from
-# zero moments (a step of ~lr per parameter whatever its gradient, so a
-# gradient near 0 can flip sign), check_train_step's 4 lr; BatchNorm's
-# running statistics after the step (their change over it, rel. L2 over
-# every BatchNorm): in f32 the same function to f32 rounding, in bf16
-# EFF_STATS_REL_L2, the bound for bf16 rounding of a B0 step. ViT-B/16 on
-# mesh_model=2 (each MLP split over the 2 ranks) against 1 process: in bf16
-# each rank's fc2 product is rounded before the two are summed, so the
-# loss keeps TRAIN_LOSS_REL_TOL; in f32 the f32 bound.
-PAR_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
-PAR_F32_LOSS_REL_TOL = 1e-5
-PAR_F32_STATS_REL_L2 = 1e-4
-PAR_BF16_STATS_REL_L2 = EFF_STATS_REL_L2
-# cli train fold_parallel=true: each fold's epoch-1 train loss against the
-# sequential cli train of the same fold (the same process-local work, but
-# the two ranks' kernels share the card: the loss keeps the same bound).
 PAR_ENTRY_FOLDS = 2
-PAR_ENTRY_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
 V2E_WEIGHTS = (0.4, 0.3, 0.3)
 V2E_FOLDS = 2
 V2E_STAGE_HW = ((56, 56), (28, 28), (14, 14), (7, 7))   # ConvNeXt-B's maps at 224
@@ -500,16 +500,6 @@ VIT_F32_BOUNDS = (1e-6, 1e-5, 2.5e-4)
 VIT_BOUNDS = (5e-4, 0.019, 0.19)
 CONVNEXT_F32_BOUNDS = (1e-6, 5e-6, 1.5e-4)
 CONVNEXT_BOUNDS = (1.8e-3, 0.015, 0.18)
-
-
-class SmokeFailure(RuntimeError):
-    pass
-
-
-def require(ok: bool, what: str) -> None:
-    """A check that stays under ``python -O``, unlike ``assert``."""
-    if not ok:
-        raise SmokeFailure(what)
 
 
 def nvidia_smi() -> str:
@@ -636,21 +626,6 @@ KERNEL_META = {
     "dwconv_wgrad": ("cuda", "image_classification_tpu_torch/csrc/dwconv7x7_fwd_wgrad.cu",
                      "image_classification_tpu/ops/dwconv.py:223"),
 }
-WRAPPERS = {"dwconv": depthwise_conv7x7, "block_mlp": block_mlp, "gelu": gelu,
-            "dwconv_bwd": depthwise_conv7x7_bwd, "block_mlp_bwd": block_mlp_bwd,
-            "gelu_bwd": gelu_bwd, "warp": warp,
-            "dwconv_wgrad": depthwise_conv7x7_wgrad}
-
-
-def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-
-
-def read_launches() -> dict:
-    return {k: fn.launches for k, fn in WRAPPERS.items()}
-
-
 def check_f32_paths(gen) -> None:
     """Every kernel's f32 path at small odd shapes, and the depthwise
     forward's wide-group launch (a grid of 4,096 warps or more) in f32: the
@@ -1181,21 +1156,6 @@ def check_warp_edges(gen) -> None:
                       flush=True)
 
 
-def synthetic_images(n: int, seed: int) -> np.ndarray:
-    """uint8 60x80 images from a numpy seed: a random colour per image plus
-    noise."""
-    rng = np.random.default_rng(seed)
-    colour = rng.uniform(0, 255, size=(n, 1, 1, 3))
-    noise = rng.normal(0, 40, size=(n, *NATIVE, 3))
-    return np.clip(np.round(colour + noise), 0, 255).astype(np.uint8)
-
-
-def train_inputs(cfg, n: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """uint8 60x80 images and labels from a numpy seed, on the host."""
-    labels = np.random.default_rng(seed + 1).integers(0, cfg.num_classes, n)
-    return torch.from_numpy(synthetic_images(n, seed)), torch.from_numpy(labels)
-
-
 def check_aug(cfg) -> dict:
     """``train_augment`` + ``mixup_cutmix_batch`` on N_AUG images: bf16 with
     the warp kernel on the card against f32 through the plain path on the
@@ -1258,31 +1218,6 @@ def aug_rate(cfg) -> float:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:100]}", flush=True)
     return rate
-
-
-def seeded_model(cfg, seed: int):
-    """The configured model from a torch.Generator seed, with layer scale
-    drawn from U(0.3, 0.7) instead of its 1e-6 init so every block changes
-    its input."""
-    gen = torch.Generator().manual_seed(seed)
-    bundle = create_model(cfg, generator=gen)
-    with torch.no_grad():
-        for name, p in bundle.module.named_parameters():
-            if name.endswith(".gamma"):
-                p.copy_(0.3 + 0.4 * torch.rand(p.shape, generator=gen))
-    return bundle
-
-
-def train_model(cfg, device):
-    bundle = seeded_model(cfg, seed=7)
-    bundle.module.to(device)
-    return bundle
-
-
-def rel_l2(a: list[torch.Tensor], b: list[torch.Tensor]) -> float:
-    num = sum(float((x.double() - y.double()).pow(2).sum()) for x, y in zip(a, b))
-    den = sum(float(y.double().pow(2).sum()) for y in b)
-    return (num / max(den, 1e-300)) ** 0.5
 
 
 def check_train_step(cfg) -> dict:
@@ -1661,52 +1596,6 @@ def _run_slice(tmp: str) -> dict:
             "peak_mem_gib": peak_gib, "max_dprob": delta}
 
 
-def expected_launches(cfg, steps: int, forwards: int) -> dict:
-    """Each kernel's launches in ``steps`` optimizer steps and ``forwards``
-    forwards without gradient of ``cfg``'s model (:func:`model_launches`,
-    ``gradient_accumulation_steps`` microbatches a step); per step the aug
-    warps once, and once more for each RandAugment slot."""
-    want = model_launches(cfg, cfg.gradient_accumulation_steps * steps, forwards)
-    want["warp"] = steps * (1 + (cfg.randaugment_num_ops if cfg.use_randaugment else 0))
-    return want
-
-
-def model_launches(cfg, micro: int, forwards: int) -> dict:
-    """Each kernel's launches in ``micro`` microbatches forward and backward
-    and ``forwards`` forwards without gradient of ``cfg``'s model. A ViT:
-    GELU forward in every block's MLP, and its backward per microbatch. A
-    ConvNeXt: per microbatch and per forward, every block's depthwise
-    forward and its tail: the block tail kernel where
-    ``block_mlp_available`` and the block has no drop-path and exact GELU,
-    else the composed route, with the GELU kernel (none with tanh GELU);
-    per microbatch every block of a trained stage runs the backward of both,
-    the depthwise one as the forward stencil on g (dx) plus the wgrad
-    kernel (dw), and the stem and the stages under ``freeze_stages`` run
-    none (nothing before them is trained). EfficientNet launches none."""
-    want = dict.fromkeys(WRAPPERS, 0)
-    base = cfg.model_name.split(".")[0]
-    if base in VIT_CONFIGS:
-        depth = VIT_CONFIGS[base]["depth"]
-        want["gelu"], want["gelu_bwd"] = depth * (micro + forwards), depth * micro
-        return want
-    if base not in CONVNEXT_CONFIGS:
-        return want
-    depths, dims = CONVNEXT_CONFIGS[base]
-    rates = drop_path_rates(cfg.drop_path_rate, depths)
-    for stage, (d, c) in enumerate(zip(depths, dims)):
-        for rate in rates[stage]:
-            fused = block_mlp_available(c) and rate == 0 and not cfg.gelu_approximate
-            tails = (["block_mlp"] if fused else
-                     [] if cfg.gelu_approximate else ["gelu"])
-            for name in ["dwconv", *tails]:
-                want[name] += micro + forwards
-            if stage >= cfg.freeze_stages:
-                for name in ("dwconv", "dwconv_bwd", "dwconv_wgrad",
-                             *(f"{t}_bwd" for t in tails)):
-                    want[name] += micro
-    return want
-
-
 def entry_labels() -> np.ndarray:
     """ENTRY_TRAIN labels over 44 classes with a long tail, shuffled."""
     k = 44
@@ -1904,11 +1793,6 @@ def check_randaug(v2) -> dict:
                     and st["beyond_40"] <= RA_BF16_SHARE_BEYOND_40,
                     f"RandAugment bf16 card vs f32 host: {st}")
     return stats
-
-
-def read_submission(path: str) -> list[str]:
-    with open(path) as f:
-        return f.read().splitlines()
 
 
 def run_v2() -> dict:
@@ -2608,153 +2492,6 @@ def _run_v2_ensemble(tmp: str) -> dict:
 
 
 # ------------------------------------------------------------ parallel
-def _par_job(config: str, over: list[str], batch: int, seed: int,
-             spec: tuple[int, int] = (-1, 1), timed: int = PAR_TIMED_STEPS) -> dict:
-    """One global batch of uint8 60x80 images, its labels and one set of
-    global draws (made on the host), for ``config`` with ``over``, on the
-    ranks' mesh ``MeshSpec(*spec)`` (data, model), with ``timed`` steps
-    timed after the compared one."""
-    cfg = load_config(config, over)
-    images, labels = train_inputs(cfg, batch, seed=seed)
-    sites = drop_sites(seeded_model(cfg, 7).module)
-    draws = draw_train_step(torch.Generator().manual_seed(seed + 1), tuple(images.shape),
-                            cfg, sites)
-    return {"config": config, "over": list(over), "images": images, "labels": labels,
-            "draws": draws, "spec": spec, "timed": timed}
-
-
-def _par_step(job: dict, mesh=None) -> dict:
-    """One train step of ``job`` on this process' rows of its global batch
-    (all of them without a mesh; a model axis splits the MLPs), from the
-    seeded weights past warmup, then ``job['timed']`` more on fresh draws,
-    timed. Returns the compared step's loss, accuracy, kernel launches and
-    the state after it (split tensors gathered), on the host."""
-    from image_classification_tpu_torch.parallel.mesh import DATA_AXIS
-    from image_classification_tpu_torch.parallel.shardings import gather_tree, shard_model
-
-    cfg = load_config(job["config"], job["over"])
-    index, count = (0, 1) if mesh is None else (mesh.index(DATA_AXIS),
-                                                 mesh.size(DATA_AXIS))
-    bundle = train_model(cfg, "cuda")
-    shard_model(bundle.module, mesh)
-    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
-    crit = build_criterion(cfg, group=None if mesh is None else mesh.group(DATA_AXIS))
-    step = make_train_step(bundle, cfg, tx, crit, mesh=mesh)
-    state = create_train_state(bundle.module, use_ema=cfg.use_ema)
-    state.count = state.step = int(STEPS_PER_EPOCH * cfg.epochs
-                                   * cfg.gradient_accumulation_steps * cfg.warmup_ratio)
-    per = job["images"].shape[0] // count
-    batch = {k: job[k][index * per:(index + 1) * per].to("cuda")
-             for k in ("images", "labels")}
-    batch = {"image": batch["images"], "label": batch["labels"]}
-    draws = draws_to(job["draws"], "cuda")
-    stats0 = {k: v.clone() for k, v in bundle.module.named_buffers()}
-    reset_launches()
-    state, m = step(state, batch, draws=draws)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    names = state.names()
-    whole = gather_tree({"params": dict(zip(names, state.params())),
-                         "ema": dict(zip(names, state.ema or []))}, bundle.module)
-    out = {"loss": float(m["loss"]), "accuracy": float(m["accuracy"]),
-           "launches": launches, "lr": tx.schedule(state.count - 1),
-           "params": [v.detach().cpu() for v in whole["params"].values()],
-           "ema": [v.cpu() for v in whole["ema"].values()],
-           "stats": [(v - stats0[k]).cpu() for k, v in bundle.module.named_buffers()],
-           "want": expected_launches(cfg, 1, 0), "step_ms": None}
-    gen = torch.Generator(device="cuda")
-    t0 = time.perf_counter()
-    for i in range(job["timed"]):
-        gen.manual_seed(1000 + i)
-        state, m = step(state, batch, generator=gen)
-    torch.cuda.synchronize()
-    if job["timed"]:
-        out["step_ms"] = (time.perf_counter() - t0) * 1e3 / job["timed"]
-    return out
-
-
-def _par_worker(rank: int, world: int, rdzv: str, out: str, backend: str, jobs: list,
-                argv: list | None) -> None:
-    """One rank on the one card: joins the group (gloo for two ranks on one
-    device, NCCL at world 1), then runs ``jobs`` through :func:`_par_step`
-    on the mesh of the data axis, or ``cli.main(argv)``; saves the results
-    to ``{out}/rank{r}.pt``."""
-    import datetime
-
-    import torch.distributed as dist
-    from image_classification_tpu_torch.parallel.mesh import (
-        DATA_AXIS, Mesh, MeshSpec, build_mesh)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    kw = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
-    dist.init_process_group(backend, init_method=f"file://{rdzv}", rank=rank,
-                            world_size=world,
-                            timeout=datetime.timedelta(seconds=PAR_RDZV_TIMEOUT_S), **kw)
-    try:
-        if argv is not None:
-            cli.main(argv)
-            return
-        # at world 1 the data axis has no group of its own: hand it the world
-        # group, so that the step goes through its gradient all-reduce
-        results = [_par_step(job, build_mesh(MeshSpec(*job["spec"])) if world > 1 else
-                             Mesh((1, 1, 1), 0, {DATA_AXIS: dist.group.WORLD}))
-                   for job in jobs]
-        if backend == "nccl":
-            results.append({"nccl": ".".join(map(str, torch.cuda.nccl.version()))})
-        torch.save(results, os.path.join(out, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
-def _par_spawn(tmp: str, tag: str, world: int, backend: str, jobs: list,
-               argv: list | None = None) -> list:
-    import torch.multiprocessing as mp
-
-    out = os.path.join(tmp, tag)
-    os.makedirs(out, exist_ok=True)
-    mp.spawn(_par_worker, args=(world, os.path.join(out, "rdzv"), out, backend, jobs, argv),
-             nprocs=world, join=True)
-    if argv is not None:
-        return []
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
-
-
-def _par_compare(name: str, ranks: list[dict], one: dict, loss_tol: float,
-                 stats_tol: float | None) -> dict:
-    """The 2-rank step against the 1-process step; the ranks' states must
-    be bit-identical."""
-    r0 = ranks[0]
-    same = all(torch.equal(a, b) for r in ranks[1:] for part in ("params", "ema")
-               for a, b in zip(r0[part], r[part]))
-    loss_rel = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
-    p_err = max(float((a - b).abs().max()) for a, b in zip(r0["params"], one["params"]))
-    e_err = max((float((a - b).abs().max()) for a, b in zip(r0["ema"], one["ema"])),
-                default=0.0)
-    stats = rel_l2(r0["stats"], one["stats"]) if r0["stats"] else None
-    lr = one["lr"]
-    res = {"loss": [r0["loss"], one["loss"]], "loss_rel": loss_rel,
-           "accuracy": [r0["accuracy"], one["accuracy"]], "max_d_param": p_err,
-           "max_d_ema": e_err, "lr": lr, "stats_rel_l2": stats,
-           "ranks_bit_identical": same,
-           "step_ms": [r["step_ms"] for r in ranks] + [one["step_ms"]]}
-    print(f"parallel {name}: {len(ranks)} ranks vs 1 process: {res}", flush=True)
-    require(same, f"{name}: the ranks' parameters differ")
-    require(loss_rel <= loss_tol, f"{name}: loss rel {loss_rel} > {loss_tol}")
-    require(p_err <= 4 * lr and e_err <= 4 * lr,
-            f"{name}: params/EMA differ by {p_err}/{e_err} > 4 lr")
-    if stats_tol is not None:
-        require(stats is not None and stats <= stats_tol,
-                f"{name}: running statistics rel L2 {stats} > {stats_tol}")
-    for r in ranks:
-        for k, n in r["want"].items():
-            require(r["launches"][k] == n, f"{name}: a rank launched {k} "
-                    f"{r['launches'][k]} times, expected {n}")
-    return res
-
-
 def run_parallel() -> dict:
     """Phase ``parallel``: data parallelism on the one card (V4 and V1's
     BatchNorm, 2 gloo ranks against 1 process), one V4 step through NCCL at
@@ -2768,11 +2505,11 @@ def _run_parallel(tmp: str) -> dict:
     t_phase = time.perf_counter()
     v4 = os.path.join(REPO, "configs", "v4.json")
     vit = [*V2_OVERRIDES, f"model_name={VIT_MODEL}", "image_size=[224,224]"]
-    jobs = [_par_job(v4, [], 32, seed=61),
-            _par_job(V1_CONFIG, [], 64, seed=62),
-            _par_job(V1_CONFIG, ["compute_dtype=float32"], 64, seed=62, timed=0),
-            _par_job(V2_CONFIG, vit, V2_BATCH, seed=63, spec=(1, PAR_WORLD)),
-            _par_job(V2_CONFIG, [*vit, "compute_dtype=float32"], V2_BATCH, seed=63,
+    jobs = [par_job(v4, [], 32, seed=61),
+            par_job(V1_CONFIG, [], 64, seed=62),
+            par_job(V1_CONFIG, ["compute_dtype=float32"], 64, seed=62, timed=0),
+            par_job(V2_CONFIG, vit, V2_BATCH, seed=63, spec=(1, PAR_WORLD)),
+            par_job(V2_CONFIG, [*vit, "compute_dtype=float32"], V2_BATCH, seed=63,
                      spec=(1, PAR_WORLD), timed=0)]
     v4_cfg = load_config(v4)
     require(v4_cfg.batch_size == 32 and v4_cfg.gradient_accumulation_steps == 2
@@ -2783,27 +2520,27 @@ def _run_parallel(tmp: str) -> dict:
     t0 = time.perf_counter()
     one = []
     for job in jobs:
-        one.append(_par_step(job))
+        one.append(par_step(job))
         torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    ranks = _par_spawn(tmp, "dp", PAR_WORLD, "gloo", jobs)
+    ranks = par_spawn(tmp, "dp", PAR_WORLD, "gloo", jobs)
     print(f"parallel: {len(jobs)} steps in 1 process {t1 - t0:.1f} s, on {PAR_WORLD} "
           f"ranks {time.perf_counter() - t1:.1f} s (process start included)", flush=True)
-    res = {"v4": _par_compare("V4 (ConvNeXt-B, 260, bf16, aug + mix, accum 2)",
+    res = {"v4": par_compare("V4 (ConvNeXt-B, 260, bf16, aug + mix, accum 2)",
                               [r[0] for r in ranks], one[0], PAR_LOSS_REL_TOL, None),
-           "v1_bf16": _par_compare("V1 (EfficientNet-B0, 60x80, bf16, BatchNorm)",
+           "v1_bf16": par_compare("V1 (EfficientNet-B0, 60x80, bf16, BatchNorm)",
                                    [r[1] for r in ranks], one[1], PAR_LOSS_REL_TOL,
                                    PAR_BF16_STATS_REL_L2),
-           "v1_f32": _par_compare("V1 in f32", [r[2] for r in ranks], one[2],
+           "v1_f32": par_compare("V1 in f32", [r[2] for r in ranks], one[2],
                                   PAR_F32_LOSS_REL_TOL, PAR_F32_STATS_REL_L2),
-           "vit_tp": _par_compare(f"{VIT_MODEL} (224, batch {V2_BATCH}, bf16) on "
+           "vit_tp": par_compare(f"{VIT_MODEL} (224, batch {V2_BATCH}, bf16) on "
                                   f"mesh_model={PAR_WORLD}", [r[3] for r in ranks],
                                   one[3], PAR_LOSS_REL_TOL, None),
-           "vit_tp_f32": _par_compare(f"{VIT_MODEL} in f32 on mesh_model={PAR_WORLD}",
+           "vit_tp_f32": par_compare(f"{VIT_MODEL} in f32 on mesh_model={PAR_WORLD}",
                                       [r[4] for r in ranks], one[4],
                                       PAR_F32_LOSS_REL_TOL, None)}
     t0 = time.perf_counter()
-    nccl = _par_spawn(tmp, "nccl", 1, "nccl", jobs[:1])[0]
+    nccl = par_spawn(tmp, "nccl", 1, "nccl", jobs[:1])[0]
     print(f"parallel: the NCCL process {time.perf_counter() - t0:.1f} s", flush=True)
     res["nccl"] = {"version": nccl[1]["nccl"], "loss": nccl[0]["loss"],
                    "loss_rel": abs(nccl[0]["loss"] - one[0]["loss"]) / abs(one[0]["loss"]),
@@ -2842,32 +2579,13 @@ def _par_entry(tmp: str) -> dict:
     require(len({n // cfg.batch_size for n in train_sizes}) == 1,
             f"the folds' train sets {train_sizes} give unequal steps")
     t0 = time.perf_counter()
-    _par_spawn(tmp, "entry", PAR_ENTRY_FOLDS, "gloo", [],
-               ["train", "--config", v4, "--device", "cuda:0", "fold_parallel=true",
-                *overrides("par")])
+    par_spawn(tmp, "entry", PAR_ENTRY_FOLDS, "gloo", [],
+              ["train", "--config", v4, "--device", "cuda:0", "fold_parallel=true",
+               *overrides("par")])
     par_s = time.perf_counter() - t0
-    out = cfg.output_dir
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
-    with open(os.path.join(out, "train.log")) as f:
-        log = f.read()
-    require(sorted((r["fold"], r["epoch"]) for r in records) == [(1, 0), (2, 0)],
-            f"metrics.jsonl: {[(r['fold'], r['epoch']) for r in records]}")
-    require(log.count("mesh (fold, data, model) (2, 1, 1)") == 1
-            and all(log.count(f"fold {k} best val acc") == 1 for k in (1, 2))
-            and "failed" not in log, "train.log:\n" + log[-3000:])
-    state_dir = os.path.join(out, "train_state_foldpar")
-    require(sorted(os.listdir(state_dir)) == ["host_state.json", "train_state_fold1.pt",
-                                               "train_state_fold2.pt"],
-            f"{state_dir}: {os.listdir(state_dir)}")
-    models = sorted(os.listdir(cfg.model_save_path))
-    require(models == sorted(f"{p}_fold{k}.{e}" for p in ("best_model", "best_loss_model")
-                             for k in (1, 2) for e in ("json", "pt"))
-            + ["norm_stats.json"] * ("norm_stats.json" in models),
-            f"{cfg.model_save_path}: {models}")
+    records = check_fold_parallel_run(cfg, PAR_ENTRY_FOLDS, 1, (PAR_ENTRY_FOLDS, 1, 1),
+                                      ENTRY_TEST)
     sub = read_submission(cfg.submission_path)
-    require(sub[0] == "id,target" and len(sub) == ENTRY_TEST + 1,
-            f"submission has {len(sub)} lines")
     t0 = time.perf_counter()
     cli.main(["predict", "--config", v4, "--folds", "1,2", *overrides("par"),
               f"submission_path={tmp}/par/predict.csv"])
@@ -2878,19 +2596,8 @@ def _par_entry(tmp: str) -> dict:
     cli.main(["train", "--config", v4, *overrides("seq")])
     seq_s = time.perf_counter() - t0
     with open(f"{tmp}/seq/out/metrics.jsonl") as f:
-        seq = {json.loads(line)["fold"]: json.loads(line) for line in f}
-    rels = {}
-    for r in records:
-        s = seq[r["fold"]]
-        rels[r["fold"]] = abs(r["train_loss"] - s["train_loss"]) / abs(s["train_loss"])
-        print(f"  fold {r['fold']}: fold-parallel train loss {r['train_loss']:.6f} "
-              f"({r['steps']} steps, {r['images_per_sec']} images/s) vs sequential "
-              f"{s['train_loss']:.6f} ({s['steps']} steps, {s['images_per_sec']} "
-              f"images/s), rel {rels[r['fold']]:.3g}; val acc {r['val_acc']:.4f} vs "
-              f"{s['val_acc']:.4f}", flush=True)
-        require(r["steps"] == s["steps"] and rels[r["fold"]] <= PAR_ENTRY_LOSS_REL_TOL,
-                f"fold {r['fold']}: fold-parallel vs sequential train loss rel "
-                f"{rels[r['fold']]}")
+        seq = [json.loads(line) for line in f]
+    rels = compare_with_sequential(records, seq, PAR_ENTRY_LOSS_REL_TOL)
     return {"fold_parallel_train_s": par_s, "predict_s": predict_s,
             "sequential_train_s": seq_s, "train_loss_rel": rels}
 

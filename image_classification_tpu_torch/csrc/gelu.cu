@@ -142,7 +142,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Blocks of the kernel resident on the card at once, and the card's L2 size.
+// Blocks of the kernel resident on the card at once, and the card's L2 size,
+// each read once a process from the device current at the first launch:
+// sound at one device a process, as the port runs (one rank a GPU under
+// torchrun).
 template <typename T, int U, bool STREAM, bool EXACT>
 int resident_blocks() {
   static int blocks = 0;

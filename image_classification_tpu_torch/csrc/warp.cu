@@ -270,6 +270,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Read once a process from the device current at the first launch: sound
+// at one device a process, as the port runs (one rank a GPU under torchrun).
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {

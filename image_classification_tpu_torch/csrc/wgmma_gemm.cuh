@@ -345,6 +345,10 @@ cudaError_t make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a,
   return b_kmajor ? make_map(mb, b, N, K, BN) : make_map(mb, b, K, N, 64);
 }
 
+// The attributes are set once a process, on the device current at the
+// first launch: sound at one device a process, as the port runs (one rank a
+// GPU under torchrun). A process that launched on a second device would
+// have to set them there too.
 template <class EpiT, bool A_KMAJOR, bool B_KMAJOR>
 cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
                         const EpiT& epi, int splits, cudaStream_t st) {

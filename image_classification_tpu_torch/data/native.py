@@ -5,9 +5,10 @@ Port of ``image_classification_tpu/data/native.py``, with the same
 :func:`encode_rgb`. The library is built by g++ at first use (never at
 import) into ``image_classification_tpu_torch/_build/`` (listed in
 ``.gitignore``), keyed by a hash of its sources and flags, written under a
-private name and renamed into place, so that several processes can build at
-once. Which library it wraps is picked once, at build time, from what the
-host's toolchain offers, and never changes at run time:
+private name and renamed into place; one process a host builds (a file
+lock) and the others load its library. Which library it wraps is picked
+once, at build time, from what the host's toolchain offers, and never
+changes at run time:
 
 * ``libjpeg`` where ``jpeglib.h`` preprocesses: the repo's
   ``csrc/fastloader.cpp`` (a libjpeg thread pool with a bilinear resize),
@@ -34,6 +35,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from image_classification_tpu_torch.utils.filelock import exclusive
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 REPO_CSRC = PACKAGE_DIR.parent / "csrc"
@@ -95,7 +98,15 @@ def build() -> tuple[Path, float]:
     so = library_path(r)
     if so.exists():
         return so, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build a host: the processes that wait load the first one's library
+    with exclusive(BUILD_DIR / "build.lock"):
+        if so.exists():
+            return so, 0.0
+        return so, _compile(r, so)
+
+
+def _compile(r: Recipe, so: Path) -> float:
+    """Build ``r`` into ``so``; returns the seconds spent."""
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run([CXX, *CXXFLAGS, "-o", f"{tmp}/lib.so",
@@ -105,7 +116,7 @@ def build() -> tuple[Path, float]:
             raise RuntimeError(f"g++ failed to build the {r.name} JPEG library:\n"
                                + proc.stdout + proc.stderr)
         os.replace(f"{tmp}/lib.so", so)
-        return so, time.perf_counter() - t0
+        return time.perf_counter() - t0
 
 
 @functools.cache

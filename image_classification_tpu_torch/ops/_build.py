@@ -5,8 +5,9 @@ together, and the objects link into one shared library with a plain C
 interface, loaded with ``ctypes``. The build runs on first use (never at
 import), writes under ``image_classification_tpu_torch/_build/`` (listed in
 ``.gitignore``), and is keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads in milliseconds. It needs the CUDA
-toolkit; nothing here runs on a machine without it.
+source rebuilds and an unchanged one loads in milliseconds. One process a
+host builds (a file lock); the others wait and load its library. It needs
+the CUDA toolkit; nothing here runs on a machine without it.
 
 Pointer and stream arguments are ``ctypes.c_void_p``; each entry point that
 launches returns ``cudaGetLastError()`` after its launches, and :func:`check`
@@ -25,6 +26,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from image_classification_tpu_torch.utils.filelock import exclusive
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -83,11 +86,20 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library if it is missing; returns (path, seconds spent)."""
+    """Compile the library if it is missing; returns (path, seconds spent).
+    One build a host: under ``torchrun`` the first rank to get here compiles
+    while the others wait on the lock, then find the library and load it."""
     so = library_path()
     if so.exists():
         return so, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with exclusive(BUILD_DIR / "build.lock"):
+        if so.exists():
+            return so, 0.0
+        return so, _compile(so)
+
+
+def _compile(so: Path) -> float:
+    """Compile and link the library to ``so``; returns the seconds spent."""
     cu = [p for p in _sources() if p.suffix == ".cu"]
     # Private names, then a rename: a concurrent build or reader never sees a
     # half-written library.
@@ -112,7 +124,7 @@ def build() -> tuple[Path, float]:
         if failed:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
         os.replace(f"{tmp}/lib.so", so)
-    return so, seconds
+    return seconds
 
 
 @functools.cache

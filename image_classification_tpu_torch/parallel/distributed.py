@@ -17,6 +17,7 @@ supports on CUDA tensors too.
 
 from __future__ import annotations
 
+import datetime
 import json
 import logging
 import os
@@ -28,21 +29,48 @@ import torch.distributed as dist
 logger = logging.getLogger("ic_tpu_torch")
 
 
-def initialize(device: str | torch.device | None = None) -> None:
+def initialize(device: str | torch.device | None = None,
+               timeout: datetime.timedelta | None = None) -> None:
     """Join the process group that torchrun's variables describe: NCCL for a
-    CUDA device (``cuda:LOCAL_RANK``), gloo for the CPU. A no-op when
-    ``WORLD_SIZE`` is unset or 1, or when the group exists already."""
+    CUDA device (``cuda:LOCAL_RANK``), gloo for the CPU, with the
+    collectives' ``timeout`` (torch's default where None); the rank keeps at
+    most its share of the host's cores for torch's threads
+    (:func:`rank_threads`). A no-op when ``WORLD_SIZE`` is unset or 1, or
+    when the group exists already."""
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
         return
     device = torch.device(device if device is not None else "cuda")
+    kw = {} if timeout is None else {"timeout": timeout}
     if device.type == "cuda":
         local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(local)
-        dist.init_process_group("nccl", device_id=local)
+        dist.init_process_group("nccl", device_id=local, **kw)
     else:
-        dist.init_process_group("gloo")
-    logger.info("torch.distributed initialized: rank %d/%d (%s)", dist.get_rank(),
-                dist.get_world_size(), dist.get_backend())
+        dist.init_process_group("gloo", **kw)
+    torch.set_num_threads(min(torch.get_num_threads(), rank_threads()))
+    logger.info("torch.distributed initialized: rank %d/%d (%s), %d torch threads",
+                dist.get_rank(), dist.get_world_size(), dist.get_backend(),
+                torch.get_num_threads())
+
+
+def host_share(budget: int) -> int:
+    """This process' share of a host-wide thread ``budget``: JAX runs one
+    process a host and sizes its pools for the host, the port one process a
+    GPU, so each of a host's ranks (torchrun's ``LOCAL_WORLD_SIZE``, else 1)
+    takes ``budget // LOCAL_WORLD_SIZE`` (at least 1) and together they keep
+    to the budget."""
+    return max(1, budget // max(1, int(os.environ.get("LOCAL_WORLD_SIZE", "1"))))
+
+
+def rank_threads() -> int:
+    """The most intra-op threads a rank takes: its share of the cores this
+    process may run on. torch's default is every core a process, four times
+    the host's cores at four ranks. It is a cap, not a target: torchrun's
+    ``OMP_NUM_THREADS=1`` stays, since four V4 ranks on four H100s trained
+    fewer images a second at 8 threads a rank than at 1 (``PERF.md``, the
+    four-card runs): the loop's host work is Python's dispatch, and the
+    pool's threads only compete with it."""
+    return host_share(len(os.sched_getaffinity(0)))
 
 
 def initialized() -> bool:

@@ -55,18 +55,36 @@ from image_classification_tpu_torch.data.splits import (
     stratified_split,
 )
 from image_classification_tpu_torch.data.stats import NORM_STATS_FILE, resolve_norm_stats
-from image_classification_tpu_torch.parallel.distributed import is_primary, primary_first
+from image_classification_tpu_torch.parallel.distributed import (
+    host_share,
+    is_primary,
+    primary_first,
+)
 from image_classification_tpu_torch.parallel.mesh import DATA_AXIS, check_batch_divisible
 from image_classification_tpu_torch.train.loop import FoldResult, train_fold
 
 logger = logging.getLogger("ic_tpu_torch")
 
 
-def build_source(cfg, manifest: Manifest, img_dir: str) -> ImageSource:
+# The decoder's threads on a host (JAX's ImageSource default, one process a
+# host).
+DECODE_THREADS = 16
+
+
+def decode_threads() -> int:
+    """The decoder's threads for this rank under :func:`primary_first`: rank
+    0 decodes alone and takes the host's budget; the other ranks decode at
+    once (where there is no decode cache to read) and share it."""
+    return DECODE_THREADS if is_primary() else host_share(DECODE_THREADS)
+
+
+def build_source(cfg, manifest: Manifest, img_dir: str,
+                 num_threads: int = DECODE_THREADS) -> ImageSource:
     """The decoded uint8 images of ``manifest`` under ``img_dir``, through
     the decode cache when ``cfg.use_decode_cache``."""
     return ImageSource(img_dir, manifest.ids, native_size=tuple(cfg.native_size),
-                       cache_dir=cfg.cache_dir if cfg.use_decode_cache else None)
+                       cache_dir=cfg.cache_dir if cfg.use_decode_cache else None,
+                       num_threads=num_threads)
 
 
 def make_fold_loaders(cfg, source, manifest: Manifest, train_idx, val_idx,
@@ -116,7 +134,7 @@ def train_k_fold(cfg, manifest: Manifest | None = None, source=None,
 
     def prepare(source=source):
         if source is None:
-            source = build_source(cfg, manifest, cfg.train_dir)
+            source = build_source(cfg, manifest, cfg.train_dir, decode_threads())
         return source, resolve_norm_stats(cfg, source, save_to=save_to)
 
     source, cfg = primary_first(prepare)
@@ -172,7 +190,8 @@ def train_ensemble(cfg, resume: bool = False, device: str | torch.device = "cuda
     if len(arch_weights) != len(names):
         raise ValueError("ensemble_weights length must match ensemble_models")
     manifest = Manifest.from_csv(cfg.train_csv, num_classes=cfg.num_classes)
-    source = primary_first(lambda: build_source(cfg, manifest, cfg.train_dir))
+    source = primary_first(lambda: build_source(cfg, manifest, cfg.train_dir,
+                                                decode_threads()))
     results: list[FoldResult] = []
     weights: list[float] = []
     for name, aw in zip(names, arch_weights):

@@ -1,1 +1,3 @@
-"""Metrics of the train loop (the rest of ``utils`` is not ported yet)."""
+"""The train loop's helpers: metrics, logging, the LR monitor, checkpoints,
+step timing and profiling (each the counterpart of the JAX package's
+``utils`` module of its name), and a lock between processes."""
