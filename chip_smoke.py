@@ -87,8 +87,17 @@ filter (dx) plus the wgrad-only kernel (dw). The block tail's bf16 forward
 and backward run on one GEMM core (wgmma fed by TMA), which is also held
 alone, product by product, against ``torch.matmul``.
 
+* bench: ``image_classification_tpu_torch/bench.py``, the port's ``cli
+  bench`` (V4 at accumulation 1, batch 32 at 260): kernels 1-5 (and GELU's
+  at stage 3) at its shapes against their plain versions; its train step
+  alone (wall, device time, idle share, peak memory); ``bench.main`` in this
+  process, whose one line must be finite and positive and whose launch
+  counts must be every block's kernels in each of its steps and forwards;
+  the aug's device time against its wall (the host's dispatch share).
+
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --only parallel    # the kernels' build and phase parallel
+    python3 chip_smoke.py --only bench       # the kernels' build and phase bench
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and Triton; imports no JAX. It
 exits non-zero, before printing any result, when there is no card or any
@@ -99,6 +108,8 @@ train step. The last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -106,11 +117,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from image_classification_tpu_torch import cli
+from image_classification_tpu_torch import bench, cli
 from image_classification_tpu_torch.core.config import load_config
 from image_classification_tpu_torch.data import (
     ArraySource,
@@ -2611,6 +2623,134 @@ def report_parallel(par: dict, smi: str) -> None:
           f"sequential {par['entry']['sequential_train_s']:.1f} s; on {smi}", flush=True)
 
 
+# ------------------------------------------------------------ bench
+BENCH_STEP_TIMED = 10    # the bench's train step alone: timed steps after its warm-up
+AUG_PROFILED_CALLS = 5
+
+
+def run_bench() -> dict:
+    """Phase ``bench``: the kernels at the bench's accumulation-1 shapes
+    (ConvNeXt-B, batch 32 at 260: block-tail rows M = 135200 / 34848 /
+    9248, depthwise maps 32x65²x128 to 32x9²x1024), its train step alone,
+    then ``bench.main`` with the launch counts from 0, then the aug's
+    device time against the wall the bench read."""
+    cfg = bench.bench_config()
+    require(cfg.model_name == MODEL and cfg.batch_size == MICRO * ACCUM
+            and cfg.gradient_accumulation_steps == 1
+            and tuple(cfg.image_size) == (IMAGE, IMAGE),
+            "bench_config() no longer trains ConvNeXt-B at 260 in batches of 32, "
+            "accumulation 1")
+    gen = torch.Generator(device="cuda").manual_seed(4324)
+    table = KernelTable()
+    for stage, (hw, c, depth) in enumerate(zip(STAGE_HW, DIMS, DEPTHS)):
+        print(f"bench: {MODEL} stage {stage}, batch {cfg.batch_size}, accumulation 1:",
+              flush=True)
+        check_stage(table, gen, stage, hw, c, cfg.batch_size, depth,
+                    bwd_batch=cfg.batch_size)
+    step = bench_step(cfg)
+    torch.cuda.empty_cache()
+
+    reset_launches()                          # main path: counts from 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        line = bench.main("cuda")
+    main_s = time.perf_counter() - t0
+    launches = read_launches()
+    printed = out.getvalue().splitlines()
+    require(len(printed) == 1 and json.loads(printed[0]) == line,
+            f"bench.main printed {printed!r}")
+    values = [line["value"], *line["extra_metrics"].values()]
+    require(line["metric"] == bench.METRIC and all(np.isfinite(v) and v > 0
+                                                   for v in values),
+            f"bench line {line}")
+    require(line["vs_baseline"] == round(line["value"] / bench.REFERENCE_IMAGES_PER_SEC, 3),
+            "bench vs_baseline")
+    # every step and forward of the bench, warm-up and warm batch included
+    accum2 = cfg.replace(gradient_accumulation_steps=2)
+    want = expected_launches(cfg, bench.WARMUP_STEPS + bench.TRAIN_STEPS, 0)
+    for part in (expected_launches(accum2, bench.WARMUP_STEPS + bench.ACCUM2_STEPS, 0),
+                 model_launches(cfg, 0, (bench.INFER_BATCHES + 1) * bench.INFER_MODELS)):
+        for name, n in part.items():
+            want[name] += n
+    want["warp"] += 2 * bench.AUG_ITERS
+    print(f"bench: launches {launches}, expected {want}", flush=True)
+    for name, n in want.items():
+        require(launches[name] == n, f"bench: {name} {launches[name]} launches, "
+                f"expected {n}")
+
+    # the aug as the bench runs it: its device time against the wall a call
+    # took in the bench. utils/profiler.py:device_ms cannot time it: behind
+    # its spin kernel the host queued neither 20 calls nor 3 on the H100 (it
+    # raised). So: the kernels' own device time under the profiler, over
+    # AUG_PROFILED_CALLS calls, with their count a call, and the calls that
+    # wait for the card in one aug call (torch's sync debug mode).
+    call = bench.aug_setup(cfg, "cuda")
+    acc = torch.zeros((), dtype=torch.float32, device="cuda")
+    call(acc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        call(acc)
+    torch.cuda.set_sync_debug_mode(0)
+    aug_syncs = [str(w.message).splitlines()[0] for w in caught]
+    print(f"bench: one aug call waits for the card {len(aug_syncs)} times"
+          + (f", first: {aug_syncs[0]}" if aug_syncs else ""), flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(AUG_PROFILED_CALLS):
+            call(acc)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    aug_dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / AUG_PROFILED_CALLS
+    aug_kernels = sum(e.count for e in rows) / AUG_PROFILED_CALLS
+    aug_wall_ms = cfg.batch_size * 1e3 / line["extra_metrics"]["aug_pipeline_images_per_sec"]
+    return {"line": line, "main_s": main_s, "step": step, "aug_device_ms": aug_dev_ms,
+            "aug_kernels": aug_kernels, "aug_syncs": len(aug_syncs),
+            "aug_wall_ms": aug_wall_ms,
+            "aug_host_share": 1 - aug_dev_ms / aug_wall_ms}
+
+
+def bench_step(cfg) -> dict:
+    """The bench's train step alone: BENCH_STEP_TIMED steps after its
+    warm-up, host clock; the peak memory of those steps; one step under the
+    profiler."""
+    step, state, batch = bench.train_setup(cfg, "cuda")
+    for _ in range(bench.WARMUP_STEPS):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(BENCH_STEP_TIMED):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / BENCH_STEP_TIMED
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    require(np.isfinite(float(m["loss"])), "bench step: non-finite loss")
+    dev_ms, _ = profile_train_step(step, state, [batch, batch], wall_ms, top=12)
+    res = {"wall_ms": wall_ms, "images_per_s": cfg.batch_size * 1e3 / wall_ms,
+           "device_ms": dev_ms, "idle": max(0.0, 1 - dev_ms / wall_ms),
+           "peak_mem_gib": peak_gib}
+    print(f"bench step alone: {res}", flush=True)
+    return res
+
+
+def report_bench(res: dict, smi: str) -> None:
+    st = res["step"]
+    print(f"bench line {json.dumps(res['line'])} (bench.main {res['main_s']:.1f} s); "
+          f"the accumulation-1 step alone {st['wall_ms']:.2f} ms of wall, "
+          f"{st['device_ms']:.2f} ms of device time, idle {st['idle']:.1%}, peak "
+          f"memory {st['peak_mem_gib']:.3f} GiB; the aug {res['aug_device_ms']:.4f} ms "
+          f"of device time a call ({res['aug_kernels']:.1f} kernels, "
+          f"{res['aug_syncs']} waits for the card) in "
+          f"{res['aug_wall_ms']:.4f} ms of the bench's wall, "
+          f"host dispatch {res['aug_host_share']:.1%}; on {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -2628,6 +2768,9 @@ def main() -> int:
     if sys.argv[1:] == ["--only", "parallel"]:
         # the parallel phase alone, on the kernels just built (no result line)
         report_parallel(run_parallel(), smi)
+        return 0
+    if sys.argv[1:] == ["--only", "bench"]:
+        report_bench(run_bench(), smi)
         return 0
     kernels = check_kernels()
     v4 = load_config(os.path.join(REPO, "configs", "v4.json"))
@@ -2718,6 +2861,8 @@ def main() -> int:
           f"against the f32 host step {v2e['convnext_check']}; on {smi}", flush=True)
     torch.cuda.empty_cache()
     report_parallel(run_parallel(), smi)
+    torch.cuda.empty_cache()
+    report_bench(run_bench(), smi)
     for e in kernels:
         if e["name"] == "warp":
             e["paths"] = dict(WARP_PATHS)   # every launch shape checked in this run

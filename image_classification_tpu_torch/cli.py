@@ -5,6 +5,7 @@
     python -m image_classification_tpu_torch.cli predict [--config cfg.json] \
         [--folds 1,2] [--best-fold] [--metric acc|loss] [--device cuda] \
         [key=value ...]
+    python -m image_classification_tpu_torch.cli bench [--device cuda]
 
 ``train`` mirrors the JAX package's ``cli train``: stratified K-fold
 training (``train/kfold.py``), or with ``ensemble_models`` the K-fold per
@@ -50,6 +51,13 @@ Images are the JPEG files under ``train_dir`` and ``test_dir``, decoded
 once by ``data/source.py:ImageSource`` into the decode cache under
 ``cache_dir`` (or in memory with ``use_decode_cache=false``). The device
 defaults to ``cuda``; ``--device cpu`` runs the kernels' plain versions.
+
+``bench`` runs ``bench.py:main``, the counterpart of the JAX package's
+``cli bench``: V4 train images/s at accumulation 1 and 2, the aug's and the
+TTA ensemble's images/s, one JSON line. It takes ``--device`` only (the JAX
+parser accepts and then ignores ``--config``, ``--resume``, ``--folds`` and
+overrides; here they are refused), and with no CUDA card it raises before
+any work.
 """
 
 from __future__ import annotations
@@ -173,6 +181,12 @@ def cmd_predict(args) -> None:
     write_submission(ids, preds, cfg.submission_path, column="predict")
 
 
+def cmd_bench(args) -> None:
+    from image_classification_tpu_torch import bench
+
+    bench.main(args.device)
+
+
 def main(argv: list[str] | None = None) -> None:
     p = argparse.ArgumentParser(prog="image_classification_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -194,6 +208,9 @@ def main(argv: list[str] | None = None) -> None:
     sp.add_argument("--device", default="cuda", help="torch device")
     sp.add_argument("overrides", nargs="*", help="key=value overrides")
     sp.set_defaults(fn=cmd_predict)
+    bp = sub.add_parser("bench")
+    bp.add_argument("--device", default="cuda", help="torch device")
+    bp.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     args.fn(args)
 

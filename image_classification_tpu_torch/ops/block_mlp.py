@@ -40,7 +40,7 @@ from image_classification_tpu_torch.ops.gelu import gelu_f32, gelu_grad_f32
 # The JAX package's cutoff (ops/block_mlp.py:block_mlp_available): ConvNeXt
 # stages 0-2 take the fused tail, stage 3 (C = 1024 for ConvNeXt-B) the
 # unfused one. It was measured on a TPU; deciding it again on the H100 is
-# ROADMAP item B.1.
+# ROADMAP item D.4.
 MAX_FUSED_C = 512
 
 
