@@ -94,10 +94,21 @@ alone, product by product, against ``torch.matmul``.
   process, whose one line must be finite and positive and whose launch
   counts must be every block's kernels in each of its steps and forwards;
   the aug's device time against its wall (the host's dispatch share).
+* remat: ``make_train_step`` on ``configs/v4.json`` (ConvNeXt-B, deep
+  supervision, aug and mix, batch 32, accumulation 2) with ``block_remat``
+  ``none``, ``none`` again, ``dots`` and ``full``, each one step from the
+  same seeded weights, batch and draws, then again with
+  ``drop_path_rate=0.1`` (every block but the first on the composed route,
+  its masks carried through the recompute): the loss and each
+  microbatch's gradients against the first ``none``'s, the exact launch
+  counts of each mode (the extra forwards of the tail and the depthwise
+  conv predicted by ``tools/parallel_check.py:model_launches``), and at
+  rate 0 each mode's step wall, device time and peak memory.
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --only parallel    # the kernels' build and phase parallel
     python3 chip_smoke.py --only bench       # the kernels' build and phase bench
+    python3 chip_smoke.py --only remat       # the kernels' build and phase remat
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and Triton; imports no JAX. It
 exits non-zero, before printing any result, when there is no card or any
@@ -150,7 +161,7 @@ from image_classification_tpu_torch.aug.randaug import (
     slot_matrix,
 )
 from image_classification_tpu_torch.infer import predict_ensemble
-from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS
+from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXtBlock
 from image_classification_tpu_torch.models.factory import create_model
 from image_classification_tpu_torch.models.layers import drop_sites
 from image_classification_tpu_torch.models.vit import VIT_CONFIGS
@@ -2751,6 +2762,147 @@ def report_bench(res: dict, smi: str) -> None:
           f"host dispatch {res['aug_host_share']:.1%}; on {smi}", flush=True)
 
 
+# ------------------------------------------------------------------ remat
+REMAT_RUNS = ("none", "none", "dots", "full")   # the second none: run to run
+REMAT_DROP_PATH = 0.1
+REMAT_TIMED = 3          # timed steps a mode after the compared one (rate 0 only)
+# Bound of dots and full against none: 0 differing bits in the loss and in
+# every gradient element. A recompute runs the same kernels on the same
+# inputs in the same order; no kernel of the port uses atomics, and a
+# cuBLAS product on one stream is deterministic, so nothing may differ. The
+# second none step shows whether anything differs run to run.
+REMAT_DIFF_BITS = 0
+
+
+def run_remat() -> dict:
+    """Phase ``remat``: one V4 train step a mode from the same weights,
+    batch and draws, the launch counts from 0 around each; each
+    microbatch's gradient read by a hook on its parameter. The first
+    weights and the gradients are kept in host memory, so that the peak
+    on the card is the step's own."""
+    v4 = load_config(os.path.join(REPO, "configs", "v4.json"))
+    require(v4.model_name == MODEL and v4.use_deep_supervision
+            and v4.batch_size == MICRO * ACCUM and v4.gradient_accumulation_steps == ACCUM
+            and v4.block_remat == "none",
+            "configs/v4.json no longer trains ConvNeXt-B with deep supervision in "
+            "batches of 32, accumulation 2, without remat")
+    out = {}
+    t0 = time.perf_counter()
+    for rate in (0.0, REMAT_DROP_PATH):
+        base = v4.replace(drop_path_rate=rate)
+        bundle = train_model(base, "cuda")
+        # the factory passes cfg.block_remat to every block
+        # (tests/test_torch_remat.py); one model serves every mode here
+        blocks = [m for m in bundle.module.modules() if isinstance(m, ConvNeXtBlock)]
+        init = [p.detach().to("cpu", copy=True) for p in bundle.module.parameters()]
+        images, labels = train_inputs(base, base.batch_size, seed=41)
+        batch = {"image": images.cuda(), "label": labels.cuda()}
+        draws = draw_train_step(torch.Generator(device="cuda").manual_seed(42),
+                                tuple(images.shape), base, drop_sites(bundle.module))
+        ref = None
+        for run, mode in enumerate(REMAT_RUNS):
+            for b in blocks:
+                b.block_remat = mode
+            with torch.no_grad():
+                for p, p0 in zip(bundle.module.parameters(), init):
+                    p.copy_(p0)
+            res = remat_step(bundle, base.replace(block_remat=mode), batch, draws,
+                             timed=rate == 0.0 and run != 1)
+            grads = res.pop("grads")
+            if ref is None:
+                ref = (res["loss"], grads)
+            else:
+                res.update(remat_diff(ref, res["loss"], grads))
+            del grads
+            tag = f"remat {mode} (drop-path {rate}{', again' if run == 1 else ''})"
+            print(f"{tag}: {res}", flush=True)
+            out[tag] = res
+        del ref, bundle, init, batch, draws
+        torch.cuda.empty_cache()
+    print(f"remat phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for tag, res in out.items():
+        require(res["launches"] == res["want"], f"{tag}: launches {res['launches']}, "
+                f"expected {res['want']}")
+        require(res.get("diff_bits", 0) <= REMAT_DIFF_BITS,
+                f"{tag}: loss or gradients differ from none's: {res}")
+    return out
+
+
+def remat_step(bundle, cfg, batch, draws, timed: bool) -> dict:
+    """One train step of ``cfg`` from the model's weights past warmup, the
+    launch counts from 0 just before it and read just after; then, where
+    ``timed``, REMAT_TIMED steps on fresh draws (their wall and peak
+    memory) and one under the profiler (its device time)."""
+    tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
+    train_step = make_train_step(bundle, cfg, tx, build_criterion(cfg))
+    state = create_train_state(bundle.module, use_ema=cfg.use_ema)
+    state.count = state.step = int(STEPS_PER_EPOCH * cfg.epochs
+                                   * cfg.gradient_accumulation_steps * cfg.warmup_ratio)
+    params = list(bundle.module.parameters())
+    grads = [[] for _ in params]
+    hooks = [p.register_hook(lambda g, i=i: grads[i].append(g.detach().to("cpu", copy=True)))
+             for i, p in enumerate(params)]
+    torch.cuda.synchronize()
+    reset_launches()
+    state, m = train_step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for h in hooks:
+        h.remove()
+    res = {"loss": float(m["loss"]), "launches": launches,
+           "want": expected_launches(cfg, 1, 0), "grads": grads}
+    require(np.isfinite(res["loss"]), f"remat {cfg.block_remat}: non-finite loss")
+    if timed:
+        gen = torch.Generator(device="cuda").manual_seed(43)
+
+        def step(state, b):
+            return train_step(state, b, generator=gen)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_TIMED):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        res["wall_ms"] = (time.perf_counter() - t0) * 1e3 / REMAT_TIMED
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["device_ms"], _ = profile_train_step(step, state, [batch, batch],
+                                                 res["wall_ms"], top=0)
+    return res
+
+
+def remat_diff(ref, loss: float, grads) -> dict:
+    """The loss and every microbatch gradient against ``ref``'s (the first
+    none's): the bits that differ, and the largest difference."""
+    ref_loss, ref_grads = ref
+    bits = int(np.float32(loss).view(np.int32) != np.float32(ref_loss).view(np.int32))
+    tensors = max_abs = 0
+    for mine, theirs in zip(grads, ref_grads):
+        require(len(mine) == len(theirs) == ACCUM, "a gradient hook fired "
+                f"{len(mine)} times, expected {ACCUM}")
+        for a, b in zip(mine, theirs):
+            n = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            if n:
+                tensors += 1
+                bits += n
+                max_abs = max(max_abs, float((a - b).abs().max()))
+    return {"diff_bits": bits, "diff_tensors": tensors, "max_abs_diff": max_abs,
+            "gradients": sum(len(g) for g in grads)}
+
+
+def report_remat(res: dict, smi: str) -> None:
+    parts = []
+    for tag, r in res.items():
+        timed = ("" if "wall_ms" not in r else
+                 f", step {r['wall_ms']:.2f} ms of wall, {r['device_ms']:.2f} ms of "
+                 f"device time, peak {r['peak_mem_gib']:.3f} GiB")
+        parts.append(f"{tag}: loss {r['loss']!r}, differing bits "
+                     f"{r.get('diff_bits', '-')}, block_mlp {r['launches']['block_mlp']}, "
+                     f"dwconv {r['launches']['dwconv']}, gelu {r['launches']['gelu']}"
+                     + timed)
+    print("remat (ConvNeXt-B V4, batch 32, accumulation 2): " + "; ".join(parts)
+          + f"; on {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -2771,6 +2923,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "bench"]:
         report_bench(run_bench(), smi)
+        return 0
+    if sys.argv[1:] == ["--only", "remat"]:
+        report_remat(run_remat(), smi)
         return 0
     kernels = check_kernels()
     v4 = load_config(os.path.join(REPO, "configs", "v4.json"))
@@ -2863,6 +3018,8 @@ def main() -> int:
     report_parallel(run_parallel(), smi)
     torch.cuda.empty_cache()
     report_bench(run_bench(), smi)
+    torch.cuda.empty_cache()
+    report_remat(run_remat(), smi)
     for e in kernels:
         if e["name"] == "warp":
             e["paths"] = dict(WARP_PATHS)   # every launch shape checked in this run

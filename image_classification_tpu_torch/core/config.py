@@ -12,7 +12,10 @@ only so that presets still load: ``dwconv_impl``, ``gelu_impl``, ``mlp_2d``,
 ``pin_layout``, ``downsample_impl``, ``block_mlp_impl`` and ``warp_impl``. On
 CUDA the 7x7 depthwise conv, the fused block tail (C <= 512) and the exact
 GELU always run their hand-written kernels (``image_classification_tpu_torch/
-ops``). ``prefetch_depth`` sets how many batches each loader assembles
+ops``). ``block_remat`` is honoured, as in JAX: a ConvNeXt recomputes its
+blocks in the backward (``"dots"`` keeps the depthwise and matmul outputs,
+``"full"`` only each block's input; ``models/convnext.py``); EfficientNet
+and ViT ignore it. ``prefetch_depth`` sets how many batches each loader assembles
 ahead on its background thread; ``use_decode_cache`` whether the decoded
 images persist in ``cache_dir`` or are decoded in memory for the run.
 ``debug_nans`` makes the fold loop check each step's loss and gradient norm.

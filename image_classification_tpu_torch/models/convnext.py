@@ -24,13 +24,33 @@ Under autograd the three kernel ops run as ``torch.autograd.Function``s
 whose backwards are kernels too; the stem, downsamples, LayerNorms, pooling,
 the composed route's matmuls (left to XLA in the JAX package as well) and
 the heads are plain autograd.
+
+``block_remat`` is JAX's (``convnext.py:239-257``): ``"full"`` recomputes
+each block from its input in the backward; ``"dots"`` keeps the depthwise
+output (JAX's ``dwconv_out``) and the outputs of the matmuls, and
+recomputes the rest of the tail: on the composed route LayerNorm, GELU,
+layer scale and drop-path, with the two products saved by a
+selective-checkpoint policy; on the fused route the whole tail, one
+``autograd.Function`` that, like JAX's Pallas ``custom_vjp``, is not a
+dot, so its kernel runs again in the backward. A block recomputes with the
+drop-path mask of its own forward, which it reads once and hands to the
+checkpointed function. Under tensor parallelism (a split MLP) a remat mode
+raises: its recompute would run the model group's all-reduce again in the
+backward.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from image_classification_tpu_torch.models.layers import (
     Dropout,
@@ -65,6 +85,19 @@ CONVNEXT_CONFIGS: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
 }
 
 
+BLOCK_REMAT = ("none", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``"dots"``' policy (JAX's ``checkpoint_dots``): keep the outputs of
+    the composed tail's two matmuls, rank 2 after its reshape."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+
 class DepthwiseConv(nn.Module):
     """Params of ``nn.Conv2d(dim, dim, 7, padding=3, groups=dim)``."""
 
@@ -90,9 +123,13 @@ class Mlp(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, layer_scale_init: float = 1e-6,
-                 drop_path: float = 0.0, gelu_approximate: bool = False):
+                 drop_path: float = 0.0, gelu_approximate: bool = False,
+                 block_remat: str = "none"):
         super().__init__()
+        if block_remat not in BLOCK_REMAT:
+            raise ValueError(f"unknown block_remat {block_remat!r}")
         self.gelu_approximate = gelu_approximate
+        self.block_remat = block_remat
         self.conv_dw = DepthwiseConv(dim)
         self.norm = LayerNorm(dim)
         self.mlp = Mlp(dim)
@@ -108,8 +145,29 @@ class ConvNeXtBlock(nn.Module):
                 and not self.gelu_approximate and self.mlp.group is None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x
-        y = self.conv_dw(x)
+        # read here: the site's mask is cleared when its drop_masks block
+        # exits, before a recompute in the backward
+        mask = self.drop_path.active_mask()
+        if self.block_remat == "none" or not torch.is_grad_enabled():
+            return self._block(x, mask)
+        if self.mlp.group is not None:
+            raise NotImplementedError(
+                f"block_remat={self.block_remat!r} under tensor parallelism: the "
+                "recompute would run the model group's all-reduce in the backward")
+        if self.block_remat == "full":
+            return checkpoint(self._block, x, mask, use_reentrant=False)
+        context = {} if self.fused else {"context_fn": _dots_context}
+        return checkpoint(self._tail, self.conv_dw(x), x, mask, use_reentrant=False,
+                          **context)
+
+    def _block(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        return self._tail(self.conv_dw(x), x, mask)
+
+    def _tail(self, y: torch.Tensor, shortcut: torch.Tensor,
+              mask: torch.Tensor | None) -> torch.Tensor:
+        """LN -> fc1 -> GELU -> fc2 -> layer scale -> drop-path -> residual
+        on the depthwise output ``y``; ``mask`` is the drop-path keep-mask,
+        None where the block drops nothing."""
         shape, c = y.shape, y.shape[-1]
         if self.fused:
             out = block_mlp(
@@ -122,20 +180,21 @@ class ConvNeXtBlock(nn.Module):
         group = self.mlp.group
         h = dense(copy_to_model(self.norm(y.reshape(-1, c)), group), self.mlp.fc1)
         h = F.gelu(h, approximate="tanh") if self.gelu_approximate else gelu(h)
-        h = dense_row_parallel(h, self.mlp.fc2, group) * self.gamma.to(h.dtype)
-        return shortcut + self.drop_path(h.view(shape))
+        h = (dense_row_parallel(h, self.mlp.fc2, group) * self.gamma.to(h.dtype)).view(shape)
+        return shortcut + (h if mask is None else self.drop_path.apply_mask(h, mask))
 
 
 class Stage(nn.Module):
     def __init__(self, cin: int, dim: int, drop_paths: list[float], downsample: bool,
-                 gelu_approximate: bool = False):
+                 gelu_approximate: bool = False, block_remat: str = "none"):
         super().__init__()
         self.downsample = (
             nn.Sequential(LayerNorm(cin), PatchConv(cin, dim, 2))
             if downsample else nn.Identity()
         )
         self.blocks = nn.Sequential(*[
-            ConvNeXtBlock(dim, drop_path=rate, gelu_approximate=gelu_approximate)
+            ConvNeXtBlock(dim, drop_path=rate, gelu_approximate=gelu_approximate,
+                          block_remat=block_remat)
             for rate in drop_paths])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +224,7 @@ class ConvNeXt(nn.Module):
                  dims: tuple[int, ...] = (128, 256, 512, 1024),
                  dtype: torch.dtype = torch.bfloat16,
                  drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 gelu_approximate: bool = False):
+                 gelu_approximate: bool = False, block_remat: str = "none"):
         super().__init__()
         self.dims = tuple(dims)
         self.dtype = dtype
@@ -173,7 +232,7 @@ class ConvNeXt(nn.Module):
         dp = drop_path_rates(drop_path_rate, tuple(depths))
         self.stages = nn.ModuleList(
             Stage(dims[max(i - 1, 0)], dims[i], dp[i], downsample=i > 0,
-                  gelu_approximate=gelu_approximate)
+                  gelu_approximate=gelu_approximate, block_remat=block_remat)
             for i in range(len(depths))
         )
         self.head = Head(dims[-1], num_classes, drop_rate)

@@ -64,7 +64,8 @@ def create_model(cfg, model_name: str | None = None,
     train step puts it in train mode (EfficientNet's BatchNorm, dropout and
     drop-path act only there). Like the JAX factory, it passes
     ``cfg.drop_rate`` and ``cfg.drop_path_rate`` itself, so a V1 model
-    trains without head dropout unless the config sets one. A ViT sizes its
+    trains without head dropout unless the config sets one, and a ConvNeXt
+    takes ``cfg.block_remat`` (EfficientNet and ViT ignore it, as in JAX). A ViT sizes its
     position embedding from ``cfg.image_size`` and raises ``ValueError``
     where that is not a multiple of its patch (V2's 60x80)."""
     name = model_name or cfg.model_name
@@ -81,7 +82,8 @@ def create_model(cfg, model_name: str | None = None,
         init = init_vit_
     else:
         module = build_convnext(name, cfg.num_classes,
-                                gelu_approximate=cfg.gelu_approximate, **kwargs)
+                                gelu_approximate=cfg.gelu_approximate,
+                                block_remat=cfg.block_remat, **kwargs)
         init = init_convnext_
     deep = bool(cfg.use_deep_supervision)
     if deep:

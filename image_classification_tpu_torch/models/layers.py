@@ -383,14 +383,21 @@ class _Masked(nn.Module):
     def mask_shape(self, rows: int) -> tuple[int, ...]:
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def active_mask(self) -> torch.Tensor | None:
+        """The keep-mask this forward applies: None where the layer acts as
+        the identity (eval mode or rate 0); raises where it needs one and
+        none was handed in."""
         if not self.training or self.rate == 0.0:
-            return x
+            return None
         if self.mask is None:
             raise RuntimeError(
                 f"{type(self).__name__}(rate={self.rate}) in train mode needs its "
                 "keep-mask: draw it with draw_drop_masks and apply it with drop_masks")
-        return self.apply_mask(x, self.mask)
+        return self.mask
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mask = self.active_mask()
+        return x if mask is None else self.apply_mask(x, mask)
 
     def apply_mask(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         keep = float(torch.tensor(1.0 - self.rate, dtype=x.dtype))

@@ -130,7 +130,11 @@ def model_launches(cfg, micro: int, forwards: int) -> dict:
     per microbatch every block of a trained stage runs the backward of both,
     the depthwise one as the forward stencil on g (dx) plus the wgrad
     kernel (dw), and the stem and the stages under ``freeze_stages`` run
-    none (nothing before them is trained). EfficientNet launches none."""
+    none (nothing before them is trained). Under ``block_remat`` each such
+    block's backward first runs its tail's forward again (``"dots"`` and
+    ``"full"``: the block tail kernel, or the composed route's GELU), and
+    under ``"full"`` its depthwise forward too. EfficientNet launches
+    none."""
     want = dict.fromkeys(WRAPPERS, 0)
     base = cfg.model_name.split(".")[0]
     if base in VIT_CONFIGS:
@@ -149,8 +153,10 @@ def model_launches(cfg, micro: int, forwards: int) -> dict:
             for name in ["dwconv", *tails]:
                 want[name] += micro + forwards
             if stage >= cfg.freeze_stages:
+                recomputed = {"none": [], "dots": tails,
+                              "full": ["dwconv", *tails]}[cfg.block_remat]
                 for name in ("dwconv", "dwconv_bwd", "dwconv_wgrad",
-                             *(f"{t}_bwd" for t in tails)):
+                             *(f"{t}_bwd" for t in tails), *recomputed):
                     want[name] += micro
     return want
 

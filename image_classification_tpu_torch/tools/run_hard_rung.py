@@ -2,15 +2,19 @@
 train``, from JPEG files the port writes.
 
     PYTHONPATH=. python image_classification_tpu_torch/tools/run_hard_rung.py \
-        [--rung v4_emaoff|v1|v3_1] [--root DIR] [--budget-s SECONDS] \
-        [--resume] [key=value ...]
+        [--rung RUNG] [--root DIR] [--budget-s SECONDS] [--resume] \
+        [--render-only] [key=value ...]
 
 Renders the seed-0 hard set (``data/synthetic_hard.py``: 35,551 train and
 2,000 test images at 60x80, the default ``HardTaskSpec``) as q90 JPEGs
-under ``--root`` once (a marker file records a complete set), then runs
-``cli train`` with the JAX package's configuration of the rung
-(``tools/run_hard_ladder.py``'s stage through ``tools/train_demo_tpu.py
-hard=true``; ``key=value`` arguments are appended):
+under ``--root`` once (a marker file records a complete set) with the
+decode caches of its train and test images, then runs ``cli train`` with
+the JAX package's configuration of the rung (``tools/run_hard_ladder.py``'s
+stage through ``tools/train_demo_tpu.py hard=true``: ``folds=`` becomes
+``num_folds=``, ``config=`` the config file, and a stage without one trains
+``model_name=convnext_base`` on ``Config()`` defaults; ``key=value``
+arguments are appended, so ``seed=1`` reseeds the port's run, where the
+JAX tool's ``seed=`` would draw another data set):
 
 - ``v4_emaoff`` (the default; stage ``abl_noema``): ``Config()`` defaults
   with ``model_name=convnext_base epochs=30 patience=10 split_mode=holdout
@@ -22,7 +26,23 @@ hard=true``; ``key=value`` arguments are appended):
 - ``v3_1`` (stage ``v3_1``): ``configs/v3_1.json`` with ``epochs=12
   num_folds=2 swa_start_epoch=8 patience=8 save_state_every=0``; lines
   134-157 (2 folds, 138 steps an epoch), and each fold's SWA validation
-  from ``train.log``.
+  from ``train.log``;
+- ``v4_long`` (stage ``v4_long``): ``v4_emaoff`` with EMA on, so it
+  validates the EMA weights; lines 44-73;
+- ``abl_nomix`` (stage ``abl_nomix``): ``v4_long`` with ``mixup_alpha=0.0
+  cutmix_alpha=0.0 mix_prob=0.0``; lines 104-133;
+- ``abl_v1_nosampler`` (stage ``abl_v1_nosampler``): ``v1`` with
+  ``use_sampler=false oversample_min_samples=0 save_state_every=0``; lines
+  158-181;
+- ``abl_v1_noaug`` (stage ``abl_v1_noaug``): ``v1`` with ``hflip_prob=0.0
+  ssr_prob=0.0 rotate_limit=0.0 color_jitter_prob=0.0 save_state_every=0``;
+  lines 182-205.
+
+Rungs can run side by side, one process a card or several on one card:
+render the set once with ``--render-only`` first (the marker and the
+decode caches would race), then start each rung with its own
+``CUDA_VISIBLE_DEVICES`` and ``OMP_NUM_THREADS``; each rung writes its own
+``out_<rung>``, ``models_<rung>`` and submission under ``--root``.
 
 As ``metrics.jsonl`` grows it prints each epoch's val accuracy beside the
 JAX package's, and at the end one JSON line with both curves and the best
@@ -62,6 +82,24 @@ RUNGS = {
     "v3_1": ("v3_1 (configs/v3_1.json, 2 folds, SWA from epoch 8)", "configs/v3_1.json",
              ["epochs=12", "num_folds=2", "swa_start_epoch=8", "patience=8",
               "save_state_every=0"], (134, 157), 2, 12),
+    "v4_long": ("v4_long (V4, EMA on, 50% holdout)", None,
+                ["model_name=convnext_base", "epochs=30", "patience=10",
+                 "split_mode=holdout", "val_fraction=0.5", "save_state_every=0"],
+                (44, 73), 1, 30),
+    "abl_nomix": ("abl_nomix (V4, mix off, 50% holdout)", None,
+                  ["model_name=convnext_base", "epochs=30", "patience=10",
+                   "split_mode=holdout", "val_fraction=0.5", "mixup_alpha=0.0",
+                   "cutmix_alpha=0.0", "mix_prob=0.0", "save_state_every=0"],
+                  (104, 133), 1, 30),
+    "abl_v1_nosampler": ("abl_v1_nosampler (V1, sampler off, 2 folds)",
+                         "configs/v1_effb0.json",
+                         ["epochs=12", "num_folds=2", "use_sampler=false",
+                          "oversample_min_samples=0", "save_state_every=0"],
+                         (158, 181), 2, 12),
+    "abl_v1_noaug": ("abl_v1_noaug (V1, aug off, 2 folds)", "configs/v1_effb0.json",
+                     ["epochs=12", "num_folds=2", "hflip_prob=0.0", "ssr_prob=0.0",
+                      "rotate_limit=0.0", "color_jitter_prob=0.0",
+                      "save_state_every=0"], (182, 205), 2, 12),
 }
 
 
@@ -78,16 +116,28 @@ def jax_curve(rung: str) -> dict[tuple[int, int], dict]:
 
 
 def render(root: str) -> dict:
+    """Write the set once, then build (or reuse) the decode caches of its
+    train and test images under ``root/.cache``, where every rung's ``cli
+    train`` finds them complete."""
     from image_classification_tpu_torch.data import make_hard_synthetic_dataset
+    from image_classification_tpu_torch.data.manifest import Manifest
+    from image_classification_tpu_torch.data.source import ImageSource
 
     marker = os.path.join(root, f".done_{N_TRAIN}")
-    if os.path.exists(marker):
-        return {"render_s": 0.0, "encode_s": 0.0}
-    made = make_hard_synthetic_dataset(root, n_train=N_TRAIN, n_test=N_TEST,
-                                       native_size=(60, 80), seed=0)
-    with open(marker, "w") as f:
-        f.write("ok")
-    return {"render_s": made["seconds"]["render"], "encode_s": made["seconds"]["encode"]}
+    made = {"render_s": 0.0, "encode_s": 0.0}
+    if not os.path.exists(marker):
+        seconds = make_hard_synthetic_dataset(root, n_train=N_TRAIN, n_test=N_TEST,
+                                              native_size=(60, 80), seed=0)["seconds"]
+        made = {"render_s": seconds["render"], "encode_s": seconds["encode"]}
+        with open(marker, "w") as f:
+            f.write("ok")
+    t0 = time.perf_counter()
+    for csv, folder, test in (("train.csv", "train", False),
+                              ("sample_submission.csv", "test", True)):
+        ids = Manifest.from_csv(os.path.join(root, csv), is_test=test).ids
+        ImageSource(os.path.join(root, folder), ids, native_size=(60, 80),
+                    cache_dir=os.path.join(root, ".cache"))
+    return {**made, "cache_s": round(time.perf_counter() - t0, 1)}
 
 
 def read_records(path: str) -> list[dict]:
@@ -103,6 +153,8 @@ def main() -> int:
     p.add_argument("--root", default=os.path.join(REPO, "demo_data_hard_torch"))
     p.add_argument("--budget-s", type=float, default=None)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--render-only", action="store_true",
+                   help="write the set and its decode caches, then exit")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args()
     t_start = time.perf_counter()
@@ -114,7 +166,10 @@ def main() -> int:
                          check=True).stdout.strip()
     made = render(root)
     print(f"hard set under {root}: render {made['render_s']:.1f} s, encode "
-          f"{made['encode_s']:.1f} s; on {smi}", flush=True)
+          f"{made['encode_s']:.1f} s, decode caches {made['cache_s']:.1f} s; on {smi}",
+          flush=True)
+    if args.render_only:
+        return 0
     suffix = "" if args.rung == "v4_emaoff" else f"_{args.rung}"
     out_dir = os.path.join(root, f"out{suffix}")
     over = [*rung_args, f"train_dir={root}/train", f"test_dir={root}/test",

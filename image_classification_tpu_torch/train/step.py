@@ -282,6 +282,9 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
     grads = None
     losses, correct = [], []
     for k in range(accum):
+        # the masks are cleared when the block exits, before the backward: a
+        # ConvNeXt block under block_remat hands its recompute the mask its
+        # forward read (models/convnext.py)
         with drop_masks(sites, drop[k] if sites else ()), batchnorm_group(model, group):
             outputs = model(images[k::accum])
         loss = criterion(outputs, targets[k::accum])
