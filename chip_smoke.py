@@ -161,7 +161,11 @@ from image_classification_tpu_torch.aug.randaug import (
     slot_matrix,
 )
 from image_classification_tpu_torch.infer import predict_ensemble
-from image_classification_tpu_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXtBlock
+from image_classification_tpu_torch.models.convnext import (
+    BLOCK_REMAT,
+    CONVNEXT_CONFIGS,
+    ConvNeXtBlock,
+)
 from image_classification_tpu_torch.models.factory import create_model
 from image_classification_tpu_torch.models.layers import drop_sites
 from image_classification_tpu_torch.models.vit import VIT_CONFIGS
@@ -210,6 +214,7 @@ from image_classification_tpu_torch.tools.parallel_check import (
     read_launches,
     read_submission,
     rel_l2,
+    remat_compare,
     require,
     reset_launches,
     seeded_model,
@@ -2517,9 +2522,11 @@ def _run_v2_ensemble(tmp: str) -> dict:
 # ------------------------------------------------------------ parallel
 def run_parallel() -> dict:
     """Phase ``parallel``: data parallelism on the one card (V4 and V1's
-    BatchNorm, 2 gloo ranks against 1 process), one V4 step through NCCL at
-    world 1, then ``cli train fold_parallel=true`` on 2 ranks, ``cli
-    predict``, and the sequential ``cli train`` of the same folds."""
+    BatchNorm, 2 gloo ranks against 1 process), tensor parallelism (ViT-B,
+    and V4 under each ``block_remat`` mode, on ``mesh_model=2``) with
+    kernels 6-7 at V4's split shapes, one V4 step through NCCL at world 1,
+    then ``cli train fold_parallel=true`` on 2 ranks, ``cli predict``, and
+    the sequential ``cli train`` of the same folds."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
         return _run_parallel(tmp)
 
@@ -2528,27 +2535,38 @@ def _run_parallel(tmp: str) -> dict:
     t_phase = time.perf_counter()
     v4 = os.path.join(REPO, "configs", "v4.json")
     vit = [*V2_OVERRIDES, f"model_name={VIT_MODEL}", "image_size=[224,224]"]
+    tp = f"mesh_model={PAR_WORLD}"
     jobs = [par_job(v4, [], 32, seed=61),
             par_job(V1_CONFIG, [], 64, seed=62),
             par_job(V1_CONFIG, ["compute_dtype=float32"], 64, seed=62, timed=0),
             par_job(V2_CONFIG, vit, V2_BATCH, seed=63, spec=(1, PAR_WORLD)),
             par_job(V2_CONFIG, [*vit, "compute_dtype=float32"], V2_BATCH, seed=63,
-                     spec=(1, PAR_WORLD), timed=0)]
+                     spec=(1, PAR_WORLD), timed=0),
+            *(par_job(v4, [tp, f"block_remat={mode}"], 32, seed=61, spec=(1, PAR_WORLD),
+                      timed=1, profile=True) for mode in BLOCK_REMAT),
+            par_job(v4, [tp, "block_remat=none", "compute_dtype=float32"], 32, seed=61,
+                    spec=(1, PAR_WORLD), timed=0)]
+    # V4's none and f32 jobs on the mesh; each process runs all but dots and
+    # full alone, which are held to none on the same ranks
+    tp0, f32 = 5, len(jobs) - 1
+    alone = [*range(tp0 + 1), f32]
     v4_cfg = load_config(v4)
     require(v4_cfg.batch_size == 32 and v4_cfg.gradient_accumulation_steps == 2
             and v4_cfg.aug_enabled and v4_cfg.mixup_alpha > 0
             and tuple(v4_cfg.image_size) == (IMAGE, IMAGE),
             "configs/v4.json no longer trains batch 32, accumulation 2, aug and mix at 260")
+    split_gelu = check_split_gelu(torch.Generator(device="cuda").manual_seed(4323))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    one = []
-    for job in jobs:
-        one.append(par_step(job))
+    one = {}
+    for i in alone:
+        one[i] = par_step(jobs[i])
         torch.cuda.empty_cache()
     t1 = time.perf_counter()
     ranks = par_spawn(tmp, "dp", PAR_WORLD, "gloo", jobs)
-    print(f"parallel: {len(jobs)} steps in 1 process {t1 - t0:.1f} s, on {PAR_WORLD} "
-          f"ranks {time.perf_counter() - t1:.1f} s (process start included)", flush=True)
+    print(f"parallel: {len(alone)} steps in 1 process {t1 - t0:.1f} s, {len(jobs)} on "
+          f"{PAR_WORLD} ranks {time.perf_counter() - t1:.1f} s (process start included)",
+          flush=True)
     res = {"v4": par_compare("V4 (ConvNeXt-B, 260, bf16, aug + mix, accum 2)",
                               [r[0] for r in ranks], one[0], PAR_LOSS_REL_TOL, None),
            "v1_bf16": par_compare("V1 (EfficientNet-B0, 60x80, bf16, BatchNorm)",
@@ -2561,7 +2579,25 @@ def _run_parallel(tmp: str) -> dict:
                                   one[3], PAR_LOSS_REL_TOL, None),
            "vit_tp_f32": par_compare(f"{VIT_MODEL} in f32 on mesh_model={PAR_WORLD}",
                                       [r[4] for r in ranks], one[4],
-                                      PAR_F32_LOSS_REL_TOL, None)}
+                                      PAR_F32_LOSS_REL_TOL, None),
+           "v4_tp": par_compare(f"V4 (ConvNeXt-B, 260, bf16, aug + mix, accum 2) on {tp}",
+                                 [r[tp0] for r in ranks], one[tp0], PAR_LOSS_REL_TOL, None),
+           "v4_tp_f32": par_compare(f"V4 in f32 on {tp}", [r[f32] for r in ranks], one[f32],
+                                     PAR_F32_LOSS_REL_TOL, None)}
+    modes = {mode: [r[tp0 + i] for r in ranks] for i, mode in enumerate(BLOCK_REMAT)}
+    for mode, mine in modes.items():
+        if mode != "none":
+            for r in mine:
+                for k, n in r["want"].items():
+                    require(r["launches"][k] == n, f"V4 on {tp}, block_remat={mode}: a "
+                            f"rank launched {k} {r['launches'][k]} times, expected {n}")
+    res["v4_tp_remat"] = {
+        "bit_equal": remat_compare(f"V4 on {tp}", modes),
+        "ranks": {mode: [{k: r[k] for k in ("loss", "launches", "step_ms", "peak_mem_gib",
+                                            "profile")} for r in mine]
+                  for mode, mine in modes.items()},
+        "one_process": {k: one[tp0][k] for k in ("loss", "step_ms", "peak_mem_gib")}}
+    res["split_gelu"] = split_gelu
     t0 = time.perf_counter()
     nccl = par_spawn(tmp, "nccl", 1, "nccl", jobs[:1])[0]
     print(f"parallel: the NCCL process {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2626,12 +2662,43 @@ def _par_entry(tmp: str) -> dict:
 
 
 def report_parallel(par: dict, smi: str) -> None:
+    tp = par["v4_tp_remat"]
+    for mode, ranks in tp["ranks"].items():
+        for rank, r in enumerate(ranks):
+            prof = r["profile"]
+            print(f"V4 on mesh_model={PAR_WORLD}, block_remat={mode}, rank {rank}: step "
+                  f"{r['step_ms']:.2f} ms of wall, {prof['device_ms']:.2f} ms of device "
+                  f"time (the model group's sums {prof['model_all_reduce_ms']:.2f} ms, over "
+                  f"gloo), peak {r['peak_mem_gib']:.3f} GiB; loss {r['loss']!r}; on {smi}",
+                  flush=True)
+    one = tp["one_process"]
+    print(f"V4 in 1 process: step {one['step_ms']:.2f} ms of wall, peak "
+          f"{one['peak_mem_gib']:.3f} GiB, loss {one['loss']!r}; on mesh_model={PAR_WORLD} "
+          f"loss rel {par['v4_tp']['loss_rel']:.3g} (bf16, bound {PAR_LOSS_REL_TOL}), "
+          f"{par['v4_tp_f32']['loss_rel']:.3g} (f32, bound {PAR_F32_LOSS_REL_TOL})", flush=True)
     print(f"parallel phase: {par['wall_s']:.1f} s; step ms (rank 0, rank 1, 1 process): "
           f"V4 {par['v4']['step_ms']}, V1 {par['v1_bf16']['step_ms']}, {VIT_MODEL} on "
           f"mesh_model={PAR_WORLD} {par['vit_tp']['step_ms']}; NCCL "
           f"{par['nccl']['version']} world-1 V4 step {par['nccl']['step_ms']:.1f} ms; "
           f"fold-parallel cli train {par['entry']['fold_parallel_train_s']:.1f} s vs "
           f"sequential {par['entry']['sequential_train_s']:.1f} s; on {smi}", flush=True)
+
+
+def check_split_gelu(gen) -> list[dict]:
+    """Kernels 6-7 where V4's MLPs split over ``mesh_model=PAR_WORLD``:
+    every block's hidden layer (MICRO x H x W, 4C / PAR_WORLD), (67600, 256)
+    to (1296, 2048), against their plain versions (check_gelu_fwd,
+    check_gelu_bwd), timed; ``kernels`` line entries of their own, whose
+    launches the phase's ``none`` run on the mesh fills in."""
+    table = KernelTable()
+    for hw, c, depth in zip(STAGE_HW, DIMS, DEPTHS):
+        rows, cols = MICRO * hw * hw, 4 * c // PAR_WORLD
+        check_gelu_fwd(table, gen, rows, cols, depth * ACCUM)
+        check_gelu_bwd(table, gen, rows, cols, depth * ACCUM)
+    entries = table.entries({k: KERNEL_META[k] for k in ("gelu", "gelu_bwd")})
+    for e in entries:
+        e["name"] = f"{e['name']} (mesh_model={PAR_WORLD})"
+    return entries
 
 
 # ------------------------------------------------------------ bench
@@ -3015,7 +3082,13 @@ def main() -> int:
           f"host step {v2e['vit_check']}; {V2_MODEL} with drop-path and dropout "
           f"against the f32 host step {v2e['convnext_check']}; on {smi}", flush=True)
     torch.cuda.empty_cache()
-    report_parallel(run_parallel(), smi)
+    par = run_parallel()
+    report_parallel(par, smi)
+    # the split shapes' entries take their launches from the mesh's none step
+    none = par["v4_tp_remat"]["ranks"]["none"][0]["launches"]
+    for e in par["split_gelu"]:
+        e["launches"] = none[e["name"].split(" (")[0]]
+    kernels.extend(par["split_gelu"])
     torch.cuda.empty_cache()
     report_bench(run_bench(), smi)
     torch.cuda.empty_cache()

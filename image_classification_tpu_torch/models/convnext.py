@@ -34,9 +34,13 @@ selective-checkpoint policy; on the fused route the whole tail, one
 ``autograd.Function`` that, like JAX's Pallas ``custom_vjp``, is not a
 dot, so its kernel runs again in the backward. A block recomputes with the
 drop-path mask of its own forward, which it reads once and hands to the
-checkpointed function. Under tensor parallelism (a split MLP) a remat mode
-raises: its recompute would run the model group's all-reduce again in the
-backward.
+checkpointed function. Under tensor parallelism (a split MLP, always on the
+composed route) both modes run, as JAX's ``nn.remat`` does under GSPMD:
+``"full"`` recomputes the model group's all-reduce with the rest of the
+block (every rank of the group recomputes in autograd's order, so the
+collectives stay matched), and ``"dots"`` also keeps the all-reduce's
+output, as JAX's ``checkpoint_dots`` keeps the dot's reduced result, so
+its recompute runs no collective.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from torch.utils.checkpoint import (
 )
 
 from image_classification_tpu_torch.models.layers import (
+    MODEL_SUM_OPS,
     Dropout,
     DropPath,
     LayerNorm,
@@ -88,11 +93,14 @@ CONVNEXT_CONFIGS: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
 BLOCK_REMAT = ("none", "dots", "full")
 
 
+_DOTS = (torch.ops.aten.mm.default, *MODEL_SUM_OPS)
+
+
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     """``"dots"``' policy (JAX's ``checkpoint_dots``): keep the outputs of
-    the composed tail's two matmuls, rank 2 after its reshape."""
-    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+    the composed tail's two matmuls, rank 2 after its reshape, and of a
+    split fc2's sum over the model group."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 _dots_context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
@@ -150,10 +158,6 @@ class ConvNeXtBlock(nn.Module):
         mask = self.drop_path.active_mask()
         if self.block_remat == "none" or not torch.is_grad_enabled():
             return self._block(x, mask)
-        if self.mlp.group is not None:
-            raise NotImplementedError(
-                f"block_remat={self.block_remat!r} under tensor parallelism: the "
-                "recompute would run the model group's all-reduce in the backward")
         if self.block_remat == "full":
             return checkpoint(self._block, x, mask, use_reentrant=False)
         context = {} if self.fused else {"context_fn": _dots_context}

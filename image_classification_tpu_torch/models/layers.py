@@ -106,6 +106,20 @@ def dense(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
     return torch.matmul(x, fc.weight.to(x.dtype).t()) + fc.bias.to(x.dtype)
 
 
+def model_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the model group in x's dtype, into a new tensor:
+    a functional collective (``_c10d_functional.all_reduce`` and its
+    ``wait_tensor``), not the in-place ``dist.all_reduce``, so that a
+    selective-checkpoint policy can name its output and keep it
+    (``models/convnext.py``'s ``"dots"``)."""
+    y = torch.ops._c10d_functional.all_reduce(x.contiguous(), "sum", group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y)
+
+
+MODEL_SUM_OPS = (torch.ops._c10d_functional.all_reduce.default,
+                 torch.ops._c10d_functional.wait_tensor.default)
+
+
 class _CopyToModel(torch.autograd.Function):
     """Megatron's ``f``: the identity forward, the gradient summed over the
     model group (every rank's shard of the MLP used the whole input)."""
@@ -117,9 +131,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return model_sum(g, ctx.group), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -128,9 +140,7 @@ class _ReduceFromModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=group)
-        return x
+        return model_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):

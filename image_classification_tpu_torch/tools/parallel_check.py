@@ -109,24 +109,29 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in WRAPPERS.items()}
 
 
-def expected_launches(cfg, steps: int, forwards: int) -> dict:
+def expected_launches(cfg, steps: int, forwards: int, model_size: int | None = None) -> dict:
     """Each kernel's launches in ``steps`` optimizer steps and ``forwards``
     forwards without gradient of ``cfg``'s model (:func:`model_launches`,
-    ``gradient_accumulation_steps`` microbatches a step); per step the aug
-    warps once, and once more for each RandAugment slot."""
-    want = model_launches(cfg, cfg.gradient_accumulation_steps * steps, forwards)
+    ``gradient_accumulation_steps`` microbatches a step, on a model axis of
+    ``model_size``); per step the aug warps once, and once more for each
+    RandAugment slot."""
+    want = model_launches(cfg, cfg.gradient_accumulation_steps * steps, forwards,
+                          model_size)
     want["warp"] = steps * (1 + (cfg.randaugment_num_ops if cfg.use_randaugment else 0))
     return want
 
 
-def model_launches(cfg, micro: int, forwards: int) -> dict:
+def model_launches(cfg, micro: int, forwards: int, model_size: int | None = None) -> dict:
     """Each kernel's launches in ``micro`` microbatches forward and backward
-    and ``forwards`` forwards without gradient of ``cfg``'s model. A ViT:
-    GELU forward in every block's MLP, and its backward per microbatch. A
-    ConvNeXt: per microbatch and per forward, every block's depthwise
-    forward and its tail: the block tail kernel where
-    ``block_mlp_available`` and the block has no drop-path and exact GELU,
-    else the composed route, with the GELU kernel (none with tanh GELU);
+    and ``forwards`` forwards without gradient of ``cfg``'s model, its MLPs
+    split over a model axis of ``model_size`` (``cfg.mesh_model`` where
+    None). A ViT: GELU forward in every block's MLP, and its backward per
+    microbatch. A ConvNeXt: per microbatch and per forward, every block's
+    depthwise forward and its tail: the block tail kernel where
+    ``block_mlp_available`` and the block has no drop-path, exact GELU and
+    an MLP that is not split (``ConvNeXtBlock.fused``: a block whose 4C
+    divides by the model axis splits, ``parallel/shardings.py``), else the
+    composed route, with the GELU kernel (none with tanh GELU);
     per microbatch every block of a trained stage runs the backward of both,
     the depthwise one as the forward stencil on g (dx) plus the wgrad
     kernel (dw), and the stem and the stages under ``freeze_stages`` run
@@ -145,9 +150,12 @@ def model_launches(cfg, micro: int, forwards: int) -> dict:
         return want
     depths, dims = CONVNEXT_CONFIGS[base]
     rates = drop_path_rates(cfg.drop_path_rate, depths)
+    model_size = cfg.mesh_model if model_size is None else model_size
     for stage, (d, c) in enumerate(zip(depths, dims)):
+        split = model_size > 1 and 4 * c % model_size == 0
         for rate in rates[stage]:
-            fused = block_mlp_available(c) and rate == 0 and not cfg.gelu_approximate
+            fused = (block_mlp_available(c) and rate == 0 and not cfg.gelu_approximate
+                     and not split)
             tails = (["block_mlp"] if fused else
                      [] if cfg.gelu_approximate else ["gelu"])
             for name in ["dwconv", *tails]:
@@ -212,18 +220,20 @@ def state_digest(*parts: list[torch.Tensor]) -> str:
 
 # ------------------------------------------------------------------ steps
 def par_job(config: str, over: list[str], batch: int, seed: int,
-            spec: tuple[int, ...] = (-1, 1), timed: int = PAR_TIMED_STEPS) -> dict:
+            spec: tuple[int, ...] = (-1, 1), timed: int = PAR_TIMED_STEPS,
+            profile: bool | None = None) -> dict:
     """One global batch of uint8 60x80 images, its labels and one set of
     global draws (made on the host), for ``config`` with ``over``, on the
     ranks' mesh ``MeshSpec(*spec)`` (data, model[, fold]), with ``timed``
-    steps timed after the compared one."""
+    steps timed after the compared one, and ``profile`` as
+    :func:`par_worker`'s ranks pass it to :func:`par_step`."""
     cfg = load_config(config, over)
     images, labels = train_inputs(cfg, batch, seed=seed)
     sites = drop_sites(seeded_model(cfg, 7).module)
     draws = draw_train_step(torch.Generator().manual_seed(seed + 1), tuple(images.shape),
                             cfg, sites)
     return {"config": config, "over": list(over), "images": images, "labels": labels,
-            "draws": draws, "spec": spec, "timed": timed}
+            "draws": draws, "spec": spec, "timed": timed, "profile": profile}
 
 
 def _profiled_step(step, state, batch, gen, step_ms: float | None,
@@ -231,23 +241,30 @@ def _profiled_step(step, state, batch, gen, step_ms: float | None,
     """Two more steps of ``step`` (every rank takes them: they hold
     collectives), with ``record`` under torch.profiler, the second read: the
     device time of its kernels, the device's idle share against ``step_ms``
-    (a step's wall in the timed run, since the profiler slows the host) and
-    the device time under the gradient all-reduce (``train/step.py``'s
-    ``all_reduce_sum_`` of the gradients, annotated for these steps only)."""
+    (a step's wall in the timed run, since the profiler slows the host), the
+    device time under the gradient all-reduce (``train/step.py``'s
+    ``all_reduce_sum_`` of the gradients) and under the model group's sums
+    (``models/layers.py:model_sum``, forward, backward and recompute), each
+    annotated for these steps only."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from image_classification_tpu_torch.models import layers
     from image_classification_tpu_torch.train import step as step_mod
 
-    reduce_sum = step_mod.all_reduce_sum_
+    reduce_sum, model_sum = step_mod.all_reduce_sum_, layers.model_sum
 
     def annotated(tensors, group):
         with record_function("grad_all_reduce"):
             reduce_sum(tensors, group)
 
+    def model_annotated(x, group):
+        with record_function("model_all_reduce"):
+            return model_sum(x, group)
+
     if record:
-        step_mod.all_reduce_sum_ = annotated
+        step_mod.all_reduce_sum_, layers.model_sum = annotated, model_annotated
     device = batch["image"].device
     try:
         for _ in range(2):   # the first warms the profiler up; the second is read
@@ -258,22 +275,24 @@ def _profiled_step(step, state, batch, gen, step_ms: float | None,
                 step(state, batch, generator=gen)
                 sync(device)
     finally:
-        step_mod.all_reduce_sum_ = reduce_sum
+        step_mod.all_reduce_sum_, layers.model_sum = reduce_sum, model_sum
     if not record:
         return None
     cuda = torch.autograd.DeviceType.CUDA
-    # the annotation's range on the host holds its kernels' device time; its
+    ranges = ("grad_all_reduce", "model_all_reduce")
+    # an annotation's range on the host holds its kernels' device time; its
     # mirror on the device side is left out of the kernels' sum
     kernels = [e for e in prof.key_averages()
-               if e.device_type == cuda and e.key != "grad_all_reduce"]
+               if e.device_type == cuda and e.key not in ranges]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    reduce_ms = sum(e.device_time_total for e in prof.key_averages()
-                    if e.key == "grad_all_reduce" and e.device_type != cuda) / 1e3
+    reduce_ms, model_ms = (sum(e.device_time_total for e in prof.key_averages()
+                               if e.key == key and e.device_type != cuda) / 1e3
+                           for key in ranges)
     nccl_ms = sum(e.self_device_time_total for e in kernels
                   if "nccl" in e.key.lower()) / 1e3
     idle = None if not step_ms else max(0.0, 1 - dev_ms / step_ms)
     return {"device_ms": dev_ms, "idle": idle, "grad_all_reduce_ms": reduce_ms,
-            "nccl_ms": nccl_ms}
+            "model_all_reduce_ms": model_ms, "nccl_ms": nccl_ms}
 
 
 def par_step(job: dict, mesh=None, device: str | torch.device = "cuda",
@@ -285,14 +304,16 @@ def par_step(job: dict, mesh=None, device: str | torch.device = "cuda",
     where it is True (:func:`_profiled_step`; every rank of a mesh passes a
     bool). Returns the compared step's loss, accuracy, kernel launches and
     the state after it (split tensors gathered), on the host, with a digest
-    of the parameters and EMA."""
-    from image_classification_tpu_torch.parallel.mesh import DATA_AXIS
+    of the parameters and EMA, and on the card the compared step's peak
+    memory (the model, the train state and the step's own)."""
+    from image_classification_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
     from image_classification_tpu_torch.parallel.shardings import gather_tree, shard_model
 
     device = torch.device(device)
     cfg = load_config(job["config"], job["over"])
     index, count = (0, 1) if mesh is None else (mesh.index(DATA_AXIS),
                                                  mesh.size(DATA_AXIS))
+    model_size = 1 if mesh is None else mesh.size(MODEL_AXIS)
     bundle = train_model(cfg, device)
     shard_model(bundle.module, mesh)
     tx = build_optimizer(cfg, build_lr_schedule(cfg, STEPS_PER_EPOCH))
@@ -307,10 +328,14 @@ def par_step(job: dict, mesh=None, device: str | torch.device = "cuda",
     batch = {"image": batch["images"], "label": batch["labels"]}
     draws = draws_to(job["draws"], device)
     stats0 = {k: v.clone() for k, v in bundle.module.named_buffers()}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     state, m = step(state, batch, draws=draws)
     sync(device)
     launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda"
+            else None)
     names = state.names()
     whole = gather_tree({"params": dict(zip(names, state.params())),
                          "ema": dict(zip(names, state.ema or []))}, bundle.module)
@@ -319,13 +344,13 @@ def par_step(job: dict, mesh=None, device: str | torch.device = "cuda",
     ema = [v.to("cpu", copy=True) for v in whole["ema"].values()]
     # the kernels launch on the card only; on the CPU every wrapper is its
     # plain version and counts nothing
-    want = (expected_launches(cfg, 1, 0) if device.type == "cuda"
+    want = (expected_launches(cfg, 1, 0, model_size) if device.type == "cuda"
             else dict.fromkeys(WRAPPERS, 0))
     out = {"loss": float(m["loss"]), "accuracy": float(m["accuracy"]),
            "launches": launches, "lr": tx.schedule(state.count - 1),
            "params": params, "ema": ema, "digest": state_digest(params, ema),
            "stats": [(v - stats0[k]).cpu() for k, v in bundle.module.named_buffers()],
-           "want": want, "step_ms": None, "profile": None}
+           "want": want, "step_ms": None, "profile": None, "peak_mem_gib": peak}
     gen = torch.Generator(device=device)
     t0 = time.perf_counter()
     for i in range(job["timed"]):
@@ -378,13 +403,31 @@ def par_compare(name: str, ranks: list[dict], one: dict, loss_tol: float,
     return res
 
 
+def remat_compare(name: str, modes: dict[str, list[dict]]) -> dict:
+    """Each ``block_remat`` mode's ranks (:func:`summary` at least) against
+    ``"none"``'s on the same mesh, weights, batch and draws: a recompute
+    runs the same kernels and collectives on the same inputs, so the loss
+    and every rank's parameters and EMA (their digest) must be equal to the
+    bit. Returns each mode's verdict."""
+    none = modes["none"]
+    res = {mode: all(r["loss"] == n["loss"] and r["digest"] == n["digest"]
+                     for r, n in zip(ranks, none)) for mode, ranks in modes.items()}
+    print(f"parallel {name}: each block_remat mode bit-equal to none on every rank: "
+          f"{res}", flush=True)
+    for mode, same in res.items():
+        require(same, f"{name}: block_remat={mode} differs from none: losses "
+                f"{[r['loss'] for r in modes[mode]]} vs {[r['loss'] for r in none]}")
+    return res
+
+
 # ------------------------------------------------ ranks sharing one card
 def par_worker(rank: int, world: int, rdzv: str, out: str, backend: str, jobs: list,
                argv: list | None) -> None:
     """One rank on the one card: joins the group (gloo for two ranks on one
     device, NCCL at world 1), then runs ``jobs`` through :func:`par_step`
     on the mesh of the data axis, or ``cli.main(argv)``; saves the results
-    to ``{out}/rank{r}.pt``."""
+    to ``{out}/rank{r}.pt``, with the state on rank 0 only (the others'
+    :func:`summary` is what :func:`par_compare` reads)."""
     import datetime
 
     import torch.distributed as dist
@@ -406,8 +449,11 @@ def par_worker(rank: int, world: int, rdzv: str, out: str, backend: str, jobs: l
         # at world 1 the data axis has no group of its own: hand it the world
         # group, so that the step goes through its gradient all-reduce
         results = [par_step(job, build_mesh(MeshSpec(*job["spec"])) if world > 1 else
-                            Mesh((1, 1, 1), 0, {DATA_AXIS: dist.group.WORLD}))
+                            Mesh((1, 1, 1), 0, {DATA_AXIS: dist.group.WORLD}),
+                            profile=job.get("profile"))
                    for job in jobs]
+        if rank > 0:
+            results = [summary(r) for r in results]
         if backend == "nccl":
             results.append({"nccl": ".".join(map(str, torch.cuda.nccl.version()))})
         torch.save(results, os.path.join(out, f"rank{rank}.pt"))

@@ -31,19 +31,24 @@ card given the same weights, global batch and global draws
   as JPEGs (``data/synthetic_hard.py``); ``cli predict`` on its folds; the
   sequential ``cli train`` of the same folds on rank 0's card;
 - f (2, 2, 1): e with ``num_folds=2 mesh_data=2``; its sequential run on
-  rank 1's card, beside e's.
+  rank 1's card, beside e's;
+- g (1, 2, 2): a with its MLPs split over two cards of the model axis
+  (``mesh_model=2``) times two of the data axis, under ``block_remat``
+  ``none``, ``dots`` and ``full``: the recompute's collectives on the model
+  group beside the data group's.
 
 Held to (the bounds of ``tools/parallel_check.py``): a-d and the steps of
 e-f the loss, the parameters and EMA within 4 lr, BatchNorm's statistics,
 the four ranks' states bit-identical, each rank's kernel launches exact;
 e-f each fold's train loss an epoch against the sequential run, the files
 of the fold-parallel run written once, ``cli predict`` reproducing its
-submission, each rank's launches exact. Times: a rank's step wall, the
-device time and idle share of one profiled step on rank 0, its gradient
-all-reduce's device time, and for e-f each fold's images/s from
-``metrics.jsonl`` and the walls. Every plan runs; a plan out of bound is
-printed and the run exits non-zero at its end. The results go to
-``{out}/multicard.json``.
+submission, each rank's launches exact; g's ``dots`` and ``full`` equal to
+its ``none`` to the bit on every rank. Times: a rank's step wall and peak
+memory, the device time and idle share of one profiled step on rank 0, its
+gradient all-reduce's and model group's sums' device time, and for e-f each
+fold's images/s from ``metrics.jsonl`` and the walls. Every plan of
+``--plans`` (all by default) runs; a plan out of bound is printed and the
+run exits non-zero at its end. The results go to ``{out}/multicard.json``.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ import torch
 import torch.distributed as dist
 
 WORLD = 4
-PLANS = "abcdef"
+PLANS = "abcdefg"
 # Plans e-f: a hard synthetic set of 8,032 train images (251 batches of 32:
 # each fold's train set, ~6,024 at 4 folds and ~4,016 at 2, lies inside one
 # multiple of 32, so the folds take equal steps and the fold-parallel run's
@@ -121,7 +126,7 @@ def check_setup(world: int, n_cards: int, backend: str | None = None,
 def plan_meshes() -> dict[str, tuple[int, int, int]]:
     """Each plan's mesh spec (fold, data, model)."""
     return {"a": (1, 4, 1), "b": (1, 4, 1), "c": (1, 4, 1), "d": (1, 2, 2),
-            "e": (4, 1, 1), "f": (2, 2, 1)}
+            "e": (4, 1, 1), "f": (2, 2, 1), "g": (1, 2, 2)}
 
 
 def step_plans(repo: str) -> dict[str, list[tuple]]:
@@ -158,6 +163,10 @@ def step_plans(repo: str) -> dict[str, list[tuple]]:
                PAR_LOSS_REL_TOL, None, t)],
         "f": [("V4 step on the fold mesh (2, 2, 1)", v4, [], 32, 61, "a0",
                PAR_LOSS_REL_TOL, None, t)],
+        # plan a's job with the MLPs split, under each block_remat mode
+        "g": [(f"V4 on data 2 x model 2, block_remat={mode}", v4,
+               ["mesh_model=2", f"block_remat={mode}"], 32, 61, "a0", PAR_LOSS_REL_TOL,
+               None, t) for mode in ("none", "dots", "full")],
     }
 
 
@@ -254,14 +263,29 @@ class Run:
                              loss_tol, stats_tol) or {}
             res.update(name=name, mesh=list(spec), wall_s=wall,
                        launches=[r["launches"] for r in ranks],
+                       ranks=[{k: r[k] for k in ("loss", "digest", "step_ms", "peak_mem_gib")}
+                              for r in ranks],
                        profile=mine["profile"], one_process_profile=one["profile"])
             print(f"plan {plan} times, {name}: a rank's step "
                   f"{[r['step_ms'] for r in ranks]} ms (1 process {one['step_ms']} ms); "
-                  f"rank 0's profiled step {mine['profile']}; 1 process' "
-                  f"{one['profile']}", flush=True)
+                  f"each rank's peak {[r['peak_mem_gib'] for r in ranks]} GiB (1 process "
+                  f"{one['peak_mem_gib']}); rank 0's profiled step {mine['profile']}; 1 "
+                  f"process' {one['profile']}", flush=True)
             results.append(res)
             del ranks, mine
         self.results[plan] = {"steps": results}
+
+    def remat_plan(self, plan: str) -> None:
+        """Plan ``plan``'s jobs, one a ``block_remat`` mode, against its
+        ``none`` job on every rank, to the bit (rank 0)."""
+        from image_classification_tpu_torch.tools.parallel_check import remat_compare
+
+        if self.rank != 0:
+            return
+        steps = self.results[plan]["steps"]
+        modes = {r["name"].rsplit("=", 1)[1]: r["ranks"] for r in steps}
+        self.results[plan]["bit_equal"] = self.check(plan, remat_compare, f"plan {plan}",
+                                                     modes)
 
     # ------------------------------------------------------------ cli runs
     def data(self, n_train: int) -> dict:
@@ -496,7 +520,12 @@ class Run:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="run_multicard")
     p.add_argument("--out", default=os.path.join("output", "multicard"))
-    return p.parse_args(argv)
+    p.add_argument("--plans", default=PLANS,
+                   help=f"the plans to run, in order (a subset of {PLANS!r})")
+    args = p.parse_args(argv)
+    if not args.plans or set(args.plans) - set(PLANS):
+        p.error(f"--plans takes letters of {PLANS!r}, not {args.plans!r}")
+    return args
 
 
 def main(argv=None) -> int:
@@ -537,10 +566,13 @@ def main(argv=None) -> int:
               f"{[(b['compile_s'], b['wall_s']) for b in builds]}", flush=True)
     steps = step_plans(repo)
     sequential = {}
-    for plan in PLANS:
+    paths = None
+    for plan in args.plans:
         t_plan = time.perf_counter()
         run.step_plan(plan, plan_meshes()[plan], steps[plan])
-        if plan == "e":
+        if plan == "g":
+            run.remat_plan(plan)
+        if plan in "ef" and paths is None:
             made = run.data(TRAIN_IMAGES)
             paths = made["paths"]
             run.results["data"] = made["info"]
@@ -555,7 +587,7 @@ def main(argv=None) -> int:
     run.log(f"sequential runs: {time.perf_counter() - t0:.1f} s")
     failures = gather(len(run.failures))[0]
     if rank == 0:
-        report = {"plans": PLANS, "world": world, "uuids": uuids,
+        report = {"plans": args.plans, "world": world, "uuids": uuids,
                   "cards": nvidia_smi("index,name,power.limit,pci.bus_id"),
                   "builds": builds,
                   "torch_threads": [torchrun_threads, torch.get_num_threads()],
@@ -563,7 +595,7 @@ def main(argv=None) -> int:
                   "wall_s": time.perf_counter() - t_start}
         with open(os.path.join(args.out, "multicard.json"), "w") as f:
             json.dump(report, f, indent=1, default=str)
-        print(f"run_multicard: plans {PLANS} in {report['wall_s']:.1f} s; "
+        print(f"run_multicard: plans {args.plans} in {report['wall_s']:.1f} s; "
               f"{len(run.failures)} out of bound: {run.failures}", flush=True)
         shutil.rmtree(work, ignore_errors=True)
     dist.barrier()

@@ -46,7 +46,9 @@ def test_plan_mesh_resolves_and_lays_ranks_out_as_jax(plan):
 def test_plans_cover_the_issue_table():
     steps = rm.step_plans(REPO)
     assert sorted(steps) == sorted(PLANS) == list(rm.PLANS)
-    assert [len(steps[p]) for p in rm.PLANS] == [1, 1, 2, 2, 1, 1]
+    assert [len(steps[p]) for p in rm.PLANS] == [1, 1, 2, 2, 1, 1, 3]
+    assert [j[2] for j in steps["g"]] == [["mesh_model=2", f"block_remat={m}"]
+                                        for m in ("none", "dots", "full")]
     for jobs in steps.values():
         for job in jobs:
             assert os.path.exists(job[1]) and job[3] % PLANS["a"][1] == 0
@@ -229,6 +231,28 @@ def test_par_compare_passes_equal_steps_and_catches_faults(tiny_steps):
         pc.par_compare("launches", [once, extra], once, pc.PAR_LOSS_REL_TOL, None)
     with pytest.raises(pc.CheckFailure, match="statistics"):
         pc.par_compare("stats", [once], once, pc.PAR_LOSS_REL_TOL, pc.PAR_F32_STATS_REL_L2)
+
+
+def test_remat_compare_holds_each_mode_to_none_on_every_rank(tiny_steps):
+    once, _ = tiny_steps
+    rank = pc.summary(once)
+    same = {"none": [rank, rank], "dots": [rank, rank], "full": [rank, rank]}
+    assert pc.remat_compare("same", same) == {"none": True, "dots": True, "full": True}
+    for fault, match in (({"digest": "0"}, "block_remat=full differs"),
+                         ({"loss": once["loss"] * (1 + 1e-7)}, "block_remat=full differs")):
+        with pytest.raises(pc.CheckFailure, match=match):
+            pc.remat_compare("fault", {**same, "full": [rank, {**rank, **fault}]})
+
+
+@pytest.mark.parametrize("plans,ok", [(None, True), ("g", True), ("efg", True),
+                                      ("", False), ("gh", False)])
+def test_plans_option(plans, ok):
+    argv = [] if plans is None else ["--plans", plans]
+    if ok:
+        assert rm.parse_args(argv).plans == (rm.PLANS if plans is None else plans)
+    else:
+        with pytest.raises(SystemExit):
+            rm.parse_args(argv)
 
 
 def test_compare_with_sequential():

@@ -37,6 +37,7 @@ from test_models import small_convnext
 from test_torch_effnet import port_masks
 from test_torch_ops import one_torch_thread  # noqa: F401  (autouse, module scope)
 from test_torch_vit import MaskInjector, init, inputs, loss_weights
+from torch_spawn import KernelCalls
 
 ATTO = dict(depths=(2, 2, 6, 2), dims=(40, 80, 160, 320))
 NUM_CLASSES = 7
@@ -208,39 +209,6 @@ def test_backward_recomputes_what_the_mode_drops(fused):
 def test_remat_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="block_remat"):
         port_convnext.ConvNeXtBlock(8, block_remat="some")
-    block = port_convnext.ConvNeXtBlock(8, block_remat="dots").train()
-    block.mlp.group = object()       # a split MLP (parallel/shardings.py)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        block(torch.randn(1, 3, 3, 8, requires_grad=True))
-
-
-class _KernelCalls:
-    """Counts the calls of each kernel wrapper's entry on the CPU, where the
-    wrappers run their plain versions and count no launches: the points
-    where, on the card, each kernel launches (the depthwise backward's dx
-    is the forward's entry on g, as on the card)."""
-
-    ENTRIES = {"dwconv": ("dwconv", "_dwconv_forward"),
-               "dwconv_bwd": ("dwconv", "depthwise_conv7x7_bwd"),
-               "dwconv_wgrad": ("dwconv", "depthwise_conv7x7_wgrad"),
-               "block_mlp": ("block_mlp", "block_mlp_fwd"),
-               "block_mlp_bwd": ("block_mlp", "block_mlp_bwd"),
-               "gelu": ("gelu", "_gelu_forward"),
-               "gelu_bwd": ("gelu", "gelu_bwd")}
-
-    def __init__(self, monkeypatch):
-        import importlib
-
-        self.counts = dict.fromkeys(self.ENTRIES, 0)
-        for name, (module, attr) in self.ENTRIES.items():
-            mod = importlib.import_module(f"image_classification_tpu_torch.ops.{module}")
-            real = getattr(mod, attr)
-
-            def counted(*args, _real=real, _name=name, **kwargs):
-                self.counts[_name] += 1
-                return _real(*args, **kwargs)
-
-            monkeypatch.setattr(mod, attr, counted)
 
 
 @pytest.mark.parametrize("mode,drop_path_rate,freeze_stages", [
@@ -264,7 +232,7 @@ def test_launch_prediction_counts_the_recompute(mode, drop_path_rate, freeze_sta
     rng = np.random.default_rng(12)
     batch = {"image": torch.from_numpy(rng.normal(size=(8, *HW, 3)).astype(np.float32)),
              "label": torch.from_numpy(rng.integers(0, NUM_CLASSES, size=8))}
-    calls = _KernelCalls(monkeypatch)
+    calls = KernelCalls(monkeypatch)
     step(state, batch, generator=torch.Generator().manual_seed(1))
     want = expected_launches(cfg, 1, 0)
     want.pop("warp")     # the aug is off

@@ -103,6 +103,84 @@ def steps_worker(rank: int, world: int, out: str, bundle, state, cfg,
                os.path.join(out, f"rank{rank}.pt"))
 
 
+class KernelCalls:
+    """Counts the calls of each kernel wrapper's entry on the CPU, where the
+    wrappers run their plain versions and count no launches: the points
+    where, on the card, each kernel launches (the depthwise backward's dx
+    is the forward's entry on g, as on the card). ``patch`` is pytest's
+    ``monkeypatch``, or :class:`Patch` in a rank's process."""
+
+    ENTRIES = {"dwconv": ("dwconv", "_dwconv_forward"),
+               "dwconv_bwd": ("dwconv", "depthwise_conv7x7_bwd"),
+               "dwconv_wgrad": ("dwconv", "depthwise_conv7x7_wgrad"),
+               "block_mlp": ("block_mlp", "block_mlp_fwd"),
+               "block_mlp_bwd": ("block_mlp", "block_mlp_bwd"),
+               "gelu": ("gelu", "_gelu_forward"),
+               "gelu_bwd": ("gelu", "gelu_bwd")}
+
+    def __init__(self, patch):
+        import importlib
+
+        self.counts = dict.fromkeys(self.ENTRIES, 0)
+        for name, (module, attr) in self.ENTRIES.items():
+            mod = importlib.import_module(f"image_classification_tpu_torch.ops.{module}")
+            real = getattr(mod, attr)
+
+            def counted(*args, _real=real, _name=name, **kwargs):
+                self.counts[_name] += 1
+                return _real(*args, **kwargs)
+
+            patch.setattr(mod, attr, counted)
+
+
+class Patch:
+    """``monkeypatch.setattr`` for a rank's process, which ends with its
+    worker: nothing is undone."""
+
+    @staticmethod
+    def setattr(obj, name: str, value) -> None:
+        setattr(obj, name, value)
+
+
+class ModelSums(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the model group's sums that run (``models/layers.py:
+    model_sum``'s ``_c10d_functional.all_reduce``); one that a
+    selective-checkpoint policy kept and hands back from its cache in a
+    recompute does not reach this mode, so it is not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops._c10d_functional.all_reduce.default:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def remat_worker(rank: int, world: int, out: str, modes: tuple, bundle, *args) -> None:
+    """:func:`steps_worker` once for each ``block_remat`` mode in ``modes``,
+    each on a fresh copy of ``bundle`` and the rest of its arguments (the
+    model's every ConvNeXt block set to the mode), saved under
+    ``{out}/{mode}``, with the kernel entries it called and the model
+    group's sums it ran, saved to ``{out}/{mode}/calls{r}.pt``."""
+    from image_classification_tpu_torch.models.convnext import ConvNeXtBlock
+
+    calls = KernelCalls(Patch())
+    for mode in modes:
+        b, rest = copy.deepcopy((bundle, args))
+        for m in b.module.modules():
+            if isinstance(m, ConvNeXtBlock):
+                m.block_remat = mode
+        calls.counts = dict.fromkeys(calls.ENTRIES, 0)
+        sums = ModelSums()
+        os.makedirs(os.path.join(out, mode), exist_ok=True)
+        with sums:
+            steps_worker(rank, world, os.path.join(out, mode), b, *rest)
+        torch.save({"calls": calls.counts, "model_sums": sums.count},
+                   os.path.join(out, mode, f"calls{rank}.pt"))
+
+
 def cli_worker(rank: int, world: int, *argvs: list[str]) -> None:
     """``cli.main(argv)`` for each of ``argvs`` in turn on this rank (the
     process group is live, so ``initialize`` keeps it)."""
