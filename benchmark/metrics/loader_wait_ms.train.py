@@ -1,0 +1,9 @@
+"""loader_wait_ms.train: the benchmark's host span around the loader's
+``next()`` in the window, its mean a step (the mean over ranks)."""
+
+
+def read(ctx):
+    if ctx["role"] != "train":
+        return None
+    waits = [r["loader_wait_ms"] for r in ctx["ranks"] if r["loader_wait_ms"] is not None]
+    return sum(waits) / len(waits) if waits else None
