@@ -1,0 +1,10 @@
+"""forward_device_ms.train: the program's ``train_step.forward`` spans (the
+model's forward under its masks, then the loss; one a microbatch), their
+device time summed over a step's microbatches, mean a step of the traced
+stretch (``benchmark/program_spans.py``)."""
+
+from benchmark.program_spans import device_ms_per
+
+
+def read(ctx):
+    return device_ms_per(ctx, "train", "train_step.forward", "train_step")

@@ -10,8 +10,10 @@ the JAX package) a daemon thread assembles the batches that many ahead: the
 fancy-index, the padding and, for a CUDA ``device``, ``pin_memory()``; an
 exception there is raised in the consumer. The consumer's thread copies
 each batch to the device (``non_blocking`` on its current stream), so no
-batch waits for the card. The JAX package's HBM image cache (a workaround
-for a remote TPU's slow host link) is not ported.
+batch waits for the card; while a profiler records, each hand-over (the
+wait for a host batch and the enqueue of its copies) is the span
+``loader.next`` (``utils/profiler.py:span``). The JAX package's HBM image
+cache (a workaround for a remote TPU's slow host link) is not ported.
 
 With ``process_count > 1`` (one rank of the data axis each, ``train/
 kfold.py:make_fold_loaders``) every rank runs the same seeded sampler, so
@@ -32,6 +34,7 @@ import torch
 
 from image_classification_tpu_torch.data.manifest import Manifest
 from image_classification_tpu_torch.data.sampling import SequentialSampler
+from image_classification_tpu_torch.utils.profiler import span
 
 
 class DataLoader:
@@ -124,9 +127,14 @@ class DataLoader:
         it = self._host_batches()
         if self.prefetch_depth > 0:
             it = _background(it, self.prefetch_depth)
-        for batch in it:
-            yield {k: v if k == "index" else v.to(self.device, non_blocking=True)
-                   for k, v in batch.items()}
+        while True:
+            with span("loader.next"):
+                batch = next(it, None)
+                if batch is None:
+                    return
+                batch = {k: v if k == "index" else v.to(self.device, non_blocking=True)
+                         for k, v in batch.items()}
+            yield batch
 
     def _host(self, array: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(array))

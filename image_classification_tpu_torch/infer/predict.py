@@ -21,6 +21,7 @@ from image_classification_tpu_torch.train.step import (
     make_forward_views,
     tta_num_views,
 )
+from image_classification_tpu_torch.utils.profiler import span
 
 logger = logging.getLogger("ic_tpu_torch")
 
@@ -57,33 +58,39 @@ def predict_ensemble(
 ) -> tuple[list[str], np.ndarray, np.ndarray]:
     """Returns (image ids, predictions, mean probabilities). The models must
     already sit on the loader's device; their parameters are cast in place
-    (see :func:`_cast_inference_params`)."""
+    (see :func:`_cast_inference_params`). While a profiler records, the call
+    is the span ``predict_ensemble``, and each batch ``b`` the spans
+    ``predict.views``, ``predict.forward`` and ``predict.pull`` with step
+    ``b`` (``utils/profiler.py:span``)."""
     if not models:
         logger.error("no models available for prediction")
         return [], np.array([]), np.array([])
-    models = [_cast_inference_params(m.eval(), cfg) for m in models]
-    tta = get_tta(cfg)
-    n_views = tta_num_views(cfg, tta)
-    # The views are built once per batch and shared by every fold model;
-    # each model runs one forward over all views stacked along the batch.
-    views_fn = make_eval_views(cfg, tta)
-    if weights is None:
-        w = np.ones(len(models)) / len(models)
-    else:
-        w = np.asarray(weights, dtype=np.float64)
-        w = w / w.sum()
-    runs = [(float(wi), make_forward_views(m, n_views)) for wi, m in zip(w, models)]
-    ids: list[str] = []
-    all_probs: list[np.ndarray] = []
-    with torch.no_grad():
-        for batch, batch_ids in zip(test_loader, test_loader.batch_ids()):
-            xb = views_fn(batch["image"])
-            total = None
-            for wi, fwd in runs:
-                p = fwd(xb) * wi
-                total = p if total is None else total + p
-            probs = total.cpu().numpy()  # one device->host pull per batch
-            all_probs.append(probs[batch["mask"].cpu().numpy()])
+    with span("predict_ensemble"), torch.no_grad():
+        models = [_cast_inference_params(m.eval(), cfg) for m in models]
+        tta = get_tta(cfg)
+        n_views = tta_num_views(cfg, tta)
+        # The views are built once per batch and shared by every fold model;
+        # each model runs one forward over all views stacked along the batch.
+        views_fn = make_eval_views(cfg, tta)
+        if weights is None:
+            w = np.ones(len(models)) / len(models)
+        else:
+            w = np.asarray(weights, dtype=np.float64)
+            w = w / w.sum()
+        runs = [(float(wi), make_forward_views(m, n_views)) for wi, m in zip(w, models)]
+        ids: list[str] = []
+        all_probs: list[np.ndarray] = []
+        for b, (batch, batch_ids) in enumerate(zip(test_loader, test_loader.batch_ids())):
+            with span("predict.views", step=b, rows=batch["image"].shape[0]):
+                xb = views_fn(batch["image"])
+            with span("predict.forward", step=b):
+                total = None
+                for wi, fwd in runs:
+                    p = fwd(xb) * wi
+                    total = p if total is None else total + p
+            with span("predict.pull", step=b):
+                probs = total.cpu().numpy()  # one device->host pull per batch
+                all_probs.append(probs[batch["mask"].cpu().numpy()])
             ids.extend(str(i) for i in batch_ids)
     probs = np.concatenate(all_probs) if all_probs else np.zeros((0, cfg.num_classes))
     return ids, probs.argmax(axis=1), probs

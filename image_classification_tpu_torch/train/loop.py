@@ -318,8 +318,8 @@ def train_fold(cfg, train_loader, val_loader, fold: int = 1,
                 if generator is not None:
                     generator.manual_seed(derived_seed(cfg.seed, fold, "steps",
                                                        state.step))
-                with timer.compute(n_images=batch["image"].shape[0] * n_data):
-                    state, metrics = train_step(state, batch, generator=generator)
+                state, metrics = train_step(state, batch, generator=generator)
+                timer.step(n_images=batch["image"].shape[0] * n_data)
                 if cfg.debug_nans:
                     check_finite(metrics, fold, epoch, state.step)
                 losses.append(metrics["loss"])

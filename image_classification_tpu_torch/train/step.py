@@ -21,7 +21,10 @@ k+accum, ...`` of the batch; the microbatch gradients are summed
 the loss is the mean of the microbatch losses and the accuracy is taken
 on the main head against the integer labels from before the mix; EMA
 updates once per optimizer step. Metrics come back as device tensors:
-nothing in a step waits for the card.
+nothing in a step waits for the card. While a profiler records, each step
+records the span ``train_step`` and inside it ``train_step.augment``,
+``train_step.forward`` and ``train_step.backward`` (one of each a
+microbatch) and ``train_step.update`` (``utils/profiler.py:span``).
 
 Data parallelism (``mesh`` with a data axis of D > 1 ranks,
 ``parallel/mesh.py``): each rank holds rows ``[d*B/D, (d+1)*B/D)`` of the
@@ -73,6 +76,7 @@ from image_classification_tpu_torch.train.fused import fused_adamw_ema
 from image_classification_tpu_torch.train.loss import smoothed_cross_entropy
 from image_classification_tpu_torch.train.optim import trainable_indices
 from image_classification_tpu_torch.train.train_state import TrainState
+from image_classification_tpu_torch.utils.profiler import span
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -229,23 +233,27 @@ def make_train_step(bundle, cfg, tx, criterion: Callable, mesh=None) -> Callable
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None = None,
                    draws: StepDraws | None = None):
-        if draws is None and (cfg.aug_enabled or sites):
-            if generator is None:
-                raise ValueError("this train step draws (aug or drop masks): pass a "
-                                 "torch.Generator on the model's device, or draws")
-            shape = (batch["image"].shape[0] * count, *batch["image"].shape[1:])
-            draws = draw_train_step(generator, shape, cfg, sites)
-        images, targets = augment(batch, draws=draws)
-        drop = None if draws is None else local_draws(draws, index, count, sites).drop
-        grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
-                                          images, targets, batch["label"], params,
-                                          drop=drop, group=group)
-        all_reduce_sum_(grads, group)
-        gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg, trainable=trainable,
-                                sharded=sharded, model_group=None if tp is None else tp.group)
-        if gnorm is not None:
-            metrics["grad_norm"] = gnorm
-        state.step += 1
+        with span("train_step", step=state.step, rows=batch["image"].shape[0]):
+            with span("train_step.augment"):
+                if draws is None and (cfg.aug_enabled or sites):
+                    if generator is None:
+                        raise ValueError("this train step draws (aug or drop masks): pass a "
+                                         "torch.Generator on the model's device, or draws")
+                    shape = (batch["image"].shape[0] * count, *batch["image"].shape[1:])
+                    draws = draw_train_step(generator, shape, cfg, sites)
+                images, targets = augment(batch, draws=draws)
+            drop = None if draws is None else local_draws(draws, index, count, sites).drop
+            grads, metrics = accumulate_grads(bundle.module, cfg, criterion,
+                                              images, targets, batch["label"], params,
+                                              drop=drop, group=group)
+            with span("train_step.update"):
+                all_reduce_sum_(grads, group)
+                gnorm = fused_adamw_ema(grads, state, tx=tx, cfg=cfg, trainable=trainable,
+                                        sharded=sharded,
+                                        model_group=None if tp is None else tp.group)
+            if gnorm is not None:
+                metrics["grad_norm"] = gnorm
+            state.step += 1
         return state, metrics
 
     return train_step
@@ -285,11 +293,13 @@ def accumulate_grads(model: torch.nn.Module, cfg, criterion: Callable,
         # the masks are cleared when the block exits, before the backward: a
         # ConvNeXt block under block_remat hands its recompute the mask its
         # forward read (models/convnext.py)
-        with drop_masks(sites, drop[k] if sites else ()), batchnorm_group(model, group):
-            outputs = model(images[k::accum])
-        loss = criterion(outputs, targets[k::accum])
-        g = torch.autograd.grad(loss, params)
-        grads = list(g) if grads is None else torch._foreach_add(grads, g)
+        with span("train_step.forward", rows=images.shape[0] // accum):
+            with drop_masks(sites, drop[k] if sites else ()), batchnorm_group(model, group):
+                outputs = model(images[k::accum])
+            loss = criterion(outputs, targets[k::accum])
+        with span("train_step.backward"):
+            g = torch.autograd.grad(loss, params)
+            grads = list(g) if grads is None else torch._foreach_add(grads, g)
         losses.append(loss.detach())
         correct.append(_main_head(outputs).detach().argmax(dim=-1)
                        == labels[k::accum].reshape(-1))
